@@ -7,9 +7,13 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing its own lines:
   1. device   — refuses to run without CUDA; prints the card's name and power limit;
-  2. build    — compiles the CUDA kernels from ``csrc/`` (nvcc, sm_90a) and times it;
-  3. kernels  — each kernel against its plain PyTorch version at the main path's
-                shapes, with both times (median of CUDA-event timings after warm-up);
+  2. build    — compiles the CUDA kernels from ``csrc/`` (nvcc, sm_90a, one process
+                per source) and times it;
+  3. kernels  — each kernel against its plain PyTorch version at its path's
+                shapes, with both times (median of CUDA-event timings after warm-up),
+                and one full (5, 4096, 4096) factorization timed three ways:
+                cholesky_ex, blocked_cholesky with B4, blocked_cholesky with plain
+                diagonal blocks;
   4. main     — one BO iteration at the bench's full size (N=4096, D=6, 5x30 fit,
                 1000-candidate EI sweep, 5x50 anchors, float32), twice; the second
                 run's kernel launch counts must all be non-zero; the fitted model's
@@ -18,13 +22,25 @@ Phases, each printing its own lines:
   5. B3 again — on the diagonal blocks of the fitted model's own Cholesky factor,
                 with the componentwise residual held to forward substitution's
                 rounding bound;
-  6. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
+  6. thesis   — the bench's thesis iteration (N=4096, 4 continuous and 2 discrete
+                inputs, Gower kernel, exact_feval, 5x30 fit, local-penalization
+                batch of 5 through BayesianOptimization.suggest_next_locations) with
+                ``config.cuda_chol_blocks`` on, twice (cold, then warm on perturbed
+                Y); the time split into fit, Lipschitz estimate and 5 penalized
+                argmaxes, the ladder's rungs, peak memory, B3 and B4 launch counts
+                (both must be non-zero); the batch, the hint carried between the
+                calls, B4 on the fitted model's own diagonal blocks, the
+                posterior factor's backward error, and the -LML against float64
+                on the factor's own L L^T are checked; the -LML against float64
+                on the same Ky is printed as a reading;
+  7. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -107,6 +123,32 @@ def _check_tri_inv(name, L, got, want):
     return _max_err(got, want), res, res_plain
 
 
+def _chol_backward_error(A, L) -> float:
+    """max over entries of |L L^T - A| / (|L| |L^T|), in float64."""
+    Ld = L.double()
+    R = (Ld @ Ld.mT - A.double()).abs()
+    return float((R / (Ld.abs() @ Ld.abs().mT).clamp_min(1e-300)).max())
+
+
+def _check_chol(name, A, got, want, rtol=1e-4):
+    """B4's output against its plain version (when ``rtol`` is given), an
+    exactly zero strict upper triangle, and Cholesky's componentwise backward
+    error |L L^T - A| <= gamma_{nb+1} |L| |L^T| (Higham, Thm 10.3), which
+    holds at any conditioning; returns max |got - want|."""
+    if rtol is not None:
+        _close_blocks(name, got, want, rtol=rtol)
+    if not bool((torch.triu(got, 1) == 0).all()):
+        raise AssertionError(f"{name}: strict upper triangle not exactly zero")
+    res, res_plain = _chol_backward_error(A, got), _chol_backward_error(A, want)
+    limit = _gamma(A.shape[-1] + 1)
+    print(f"# {name}: max |kernel - plain| {_max_err(got, want):.3e}; componentwise "
+          f"backward error |LL^T-A|/(|L||L^T|) kernel {res:.3e}, plain {res_plain:.3e}, "
+          f"limit gamma_{A.shape[-1] + 1} = {limit:.3e}")
+    if res > limit:
+        raise AssertionError(f"{name}: backward error {res:.3e} above the bound {limit:.3e}")
+    return _max_err(got, want)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -143,8 +185,10 @@ def _matern_rows(dev, lanes, gen):
 
 
 def phase_kernels(dev, n: int = 4096, m: int = 1000):
+    from gaussian_process_optimization_tpu_torch.config import config
     from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
     from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.ops import linalg
 
     gen = torch.Generator(device=dev).manual_seed(0)
     X = (4 * torch.rand(1, n, 6, generator=gen, device=dev) - 2).contiguous()
@@ -218,6 +262,53 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
         if g == 80:
             rows["B3"] = (ms, plain)
     rows["B3"] = rows["B3"] + (max(errs),)
+
+    # B4: Cholesky blocks, nb = 256: G = 5 (a fit trial's 5 lanes), 1 (posterior)
+    errs = []
+    for g in (5, 1):
+        A = torch.randn(g, 256, 256, generator=gen, device=dev)
+        A = (A @ A.mT + 256 * torch.eye(256, device=dev)).contiguous()
+        got = cl.cholesky_blocks(A)
+        if not torch.equal(got, cl.cholesky_blocks(A)):
+            raise AssertionError("B4: two launches differ")
+        errs.append(_check_chol(f"B4 G={g} (random SPD)", A, got, cl.cholesky_plain(A)))
+        ms = _time_ms(lambda: cl.cholesky_blocks(A))
+        plain = _time_ms(lambda: cl.cholesky_plain(A))
+        print(f"# B4 cholesky_blocks G={g} nb=256: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        if g == 5:
+            rows["B4"] = (ms, plain)
+    bad = cl.cholesky_blocks(torch.stack([-torch.eye(256, device=dev), A[0]]))
+    if not (bool(torch.isnan(bad[0]).all()) and torch.equal(bad[1], got[0])):
+        raise AssertionError("B4: a -I lane must come out all NaN, and the lane beside "
+                             "it equal to that lane factored alone")
+    rows["B4"] = rows["B4"] + (max(errs),)
+    del A, got, bad
+
+    # one full factorization, three ways, on the fit shape's Matern52 Gram
+    K = ck.stationary_k_build(X, X, p5, "matern52", True)
+    Ky = 0.5 * (K + K.mT) + 0.05 * torch.eye(n, device=dev)
+    del K
+    old = config.cuda_chol_blocks
+    times = {}
+    try:
+        for route, on in (("blocked_cholesky, B4 diagonal blocks", True),
+                          ("blocked_cholesky, plain diagonal blocks", False)):
+            config.cuda_chol_blocks = on
+            Lb = linalg.blocked_cholesky(Ky)
+            res = float((Lb.double() @ Lb.double().mT - Ky.double()).abs().max()
+                        / Ky.abs().max())
+            print(f"# {route}: max |LL^T - Ky| / max |Ky| {res:.3e} (limit n u = "
+                  f"{n * 2.0 ** -24:.3e})")
+            if not res <= n * 2.0 ** -24:
+                raise AssertionError(f"{route}: the factor does not reproduce Ky")
+            del Lb
+            times[route] = _time_ms(lambda: linalg.blocked_cholesky(Ky), reps=5)
+    finally:
+        config.cuda_chol_blocks = old
+    times["cholesky_ex (the default ladder route)"] = _time_ms(
+        lambda: torch.linalg.cholesky_ex(Ky), reps=5)
+    for route, ms in times.items():
+        print(f"# full factorization 5x{n}x{n} f32, {route}: {ms:.4f} ms")
     return rows
 
 
@@ -259,7 +350,7 @@ def _neg_lml_grad_terms(model):
     Yc = m._normalized_Y()
     K = m.kern.K(m.X)
     Ky = AssembleKy.apply(K, m._effective_noise(K.dtype), m.mask)
-    logdet, quad, *_ = ExactCore.apply(Ky, Yc)
+    logdet, quad, *_ = ExactCore.apply(Ky, Yc, m.jitter_hint, m.jitter_greedy)
     (g_logdet,) = torch.autograd.grad(0.5 * Yc.shape[-1] * logdet.sum(), u,
                                       retain_graph=True)
     (g_quad,) = torch.autograd.grad(0.5 * quad.sum(), u)
@@ -388,6 +479,132 @@ def phase_main(dev):
     return launches, fit_s, acq_s, post.L
 
 
+# The f32 thesis -LML against float64 on the matrix the f32 factor does
+# represent, L L^T: what is left is the rounding of the logdet and the half
+# solve. About 10x the reading on an H100, rel 1.92e-6.
+THESIS_OWN_LML_LIMIT = 2e-5
+
+
+def _ky_of(model, jitter):
+    """The posterior's Ky: the masked K + effective noise, plus the accepted
+    jitter on the whole diagonal (``models/gp.py``, ``ops/linalg.jitchol_full``).
+    The noise is floored as in float32 whatever the model's dtype, so a float64
+    copy of a float32 model gives the same matrix in float64."""
+    from gaussian_process_optimization_tpu_torch.ops import linalg
+
+    with torch.no_grad():
+        K = model.kern.K(model.X)
+        eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+        noise = model._effective_noise(torch.float32).to(K.dtype)
+        return linalg.masked_gram(K + noise * eye, model.mask) + jitter.to(K.dtype) * eye
+
+
+def _lml(L, Yc, num_data) -> float:
+    """0.5 (-n log 2 pi - logdet - Yc^T Ky^-1 Yc) from Ky's Cholesky factor."""
+    t = torch.linalg.solve_triangular(L, Yc, upper=False)
+    return float(0.5 * (-float(num_data) * math.log(2 * math.pi)
+                        - 2.0 * torch.log(torch.diagonal(L)).sum() - (t * t).sum()))
+
+
+def phase_thesis(dev, nb: int = 256):
+    """The thesis path at the bench's full size with the blocked ladder on."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    counters = {"B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    X, Y = workload.thesis_data()
+    old = config.cuda_chol_blocks
+    config.cuda_chol_blocks = True
+    try:
+        bo = workload.thesis_bo(X, Y, device=dev, dtype=torch.float32)
+        for call in ("cold", "warm"):
+            if call == "warm":  # fresh Y, as bench.py:208 does
+                bo.Y = Y + 0.01 * np.random.default_rng(10).standard_normal(Y.shape)
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            it = workload.thesis_iteration(bo)
+            total = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            post = bo.model.posterior
+            print(f"# thesis {call} (N=4096, Gower, exact_feval, 5x30 fit, LP batch of 5, "
+                  f"f32): suggest_next_locations {total:.3f} s = fit {it.fit_s:.3f} s + "
+                  f"estimate_L {it.estimate_L_s:.3f} s + argmaxes "
+                  f"{' + '.join(f'{a:.3f}' for a in it.argmax_s)} s; peak memory {peak:.2f} GiB")
+            print(f"# thesis {call}: ladder per refit {bo.model.ladder[-1]}, posterior "
+                  f"jitter {float(post.jitter):.4g}, -LML {-float(post.lml):.6f}; "
+                  f"launches {launches}")
+            print(f"# thesis {call}: batch {it.batch.tolist()}")
+            batch = it.batch
+            if batch.shape != (5, 6) or not np.all(np.isfinite(batch)):
+                raise AssertionError(f"thesis: batch {batch}")
+            if not set(np.unique(batch[:, 4:])) <= {0.0, 1.0, 2.0}:
+                raise AssertionError(f"thesis: discrete values outside {{0, 1, 2}}: {batch}")
+            if not np.all(np.abs(batch[:, :4]) <= 2.0):
+                raise AssertionError(f"thesis: continuous values outside the box: {batch}")
+            if len({tuple(r) for r in batch}) != 5:
+                raise AssertionError(f"thesis: repeated rows in the batch: {batch}")
+            if not bool(post.ok):
+                raise AssertionError("thesis: posterior factorization failed")
+            for k, n in launches.items():
+                if n <= 0:
+                    raise AssertionError(f"thesis: kernel {k} was never launched")
+        first, second = bo.model.ladder
+        if second["fit_hint"] != first["posterior_rung"]:
+            raise AssertionError(f"thesis: the warm fit started from rung "
+                                 f"{second['fit_hint']}, not the cold posterior's "
+                                 f"{first['posterior_rung']}")
+    finally:
+        config.cuda_chol_blocks = old
+
+    # B4 on the diagonal blocks the fitted model's blocked factorization gave it:
+    # Ky_kk - L_k,<k L_k,<k^T, from the posterior's own Ky and L
+    model, post = bo.model.model, bo.model.posterior
+    Ky = _ky_of(model, post.jitter)
+    L = post.L
+    blocks = torch.stack([Ky[k:k + nb, k:k + nb] - L[k:k + nb, :k] @ L[k:k + nb, :k].mT
+                          for k in range(0, Ky.shape[-1], nb)]).contiguous()
+    got, want = cl.cholesky_blocks(blocks), cl.cholesky_plain(blocks)
+    err = _check_chol(f"B4 G={blocks.shape[0]} (thesis model's diagonal blocks)", blocks,
+                      got, want, rtol=None)
+
+    # The posterior's whole f32 factor is backward stable: L L^T is Ky up to
+    # gamma_{n+1} |L| |L^T| (Higham, Thm 10.3), and the f32 -LML is that of
+    # L L^T to the rounding of the logdet and the half solve.
+    Yc = model._normalized_Y()
+    n = Ky.shape[-1]
+    bwd, limit = _chol_backward_error(Ky, L), _gamma(n + 1)
+    lml_own = _lml(L.double(), Yc.double(), model.num_data)
+    rel_own = abs(float(post.lml) - lml_own) / abs(lml_own)
+    print(f"# thesis posterior factor: componentwise backward error |LL^T-Ky|/(|L||L^T|) "
+          f"{bwd:.3e} (limit gamma_{n + 1} = {limit:.3e}); -LML f32 vs float64 on the "
+          f"f32 factor's own L L^T: rel {rel_own:.3e} (limit {THESIS_OWN_LML_LIMIT:g})")
+    if bwd > limit:
+        raise AssertionError(f"thesis: the posterior factor's backward error {bwd:.3e} is "
+                             f"above the bound {limit:.3e}")
+    if rel_own > THESIS_OWN_LML_LIMIT:
+        raise AssertionError("thesis: the float32 -LML disagrees with its own factor's")
+
+    # A reading, not a check: the f32 -LML against float64 on the same Ky.
+    # That Ky is conditioned beyond float32's 2^24, so the f32 -LML is mostly
+    # rounding and no limit here would separate a fault from it (PERF.md;
+    # benchmarks/prof_torch_thesis.py --numerics takes the gap apart).
+    m64 = tree_map(lambda t: t.double(), model)
+    lml64 = _lml(torch.linalg.cholesky(_ky_of(m64, post.jitter.double())),
+                 m64._normalized_Y(), m64.num_data)
+    print(f"# thesis: -LML f32 {-float(post.lml):.6f} vs f64 on the same Ky {-lml64:.6f} "
+          f"(rel {abs(float(post.lml) - lml64) / abs(lml64):.3e}, a reading, not checked); "
+          f"effective noise {float(model._effective_noise(torch.float32)):.4g} + jitter "
+          f"{float(post.jitter):.4g}")
+    return launches, err
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
@@ -397,6 +614,12 @@ def main():
     launches, _, _, L = phase_main(dev)
     ms, plain, err = rows["B3"]
     rows["B3"] = (ms, plain, max(err, phase_tri_inv_on_main_path(L)))
+    del L
+    thesis_launches, b4_err = phase_thesis(dev)
+    ms, plain, err = rows["B4"]
+    rows["B4"] = (ms, plain, max(err, b4_err))
+    # B1 and B2 run on the main path, B4 on the thesis path, B3 on both
+    launches["B4"] = thesis_launches["B4"]
     sources = {
         "B1": ("stationary_k_build", "gaussian_process_optimization_tpu_torch/csrc/stationary_k.cu",
                "gaussian_process_optimization_tpu/ops/pallas_kernels.py:82"),
@@ -405,6 +628,8 @@ def main():
                "gaussian_process_optimization_tpu/ops/pallas_kernels.py:242"),
         "B3": ("tri_inv_blocks", "gaussian_process_optimization_tpu_torch/csrc/tri_inv.cu",
                "gaussian_process_optimization_tpu/ops/pallas_linalg.py:230"),
+        "B4": ("cholesky_blocks", "gaussian_process_optimization_tpu_torch/csrc/chol_blocks.cu",
+               "gaussian_process_optimization_tpu/ops/pallas_linalg.py:223"),
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():

@@ -1,8 +1,9 @@
 """Global runtime configuration (twin of ``gaussian_process_optimization_tpu/config.py``).
 
 The numeric floors and the jitter-ladder shape are the reference's. Kernel routing
-mirrors its ``use_pallas`` / ``pallas_tri_inv`` switches: ``'auto'`` routes a call
-into the hand-written CUDA kernels when the tensor it gets lies on a CUDA device.
+mirrors its ``use_pallas`` / ``pallas_tri_inv`` / ``pallas_chol_blocks`` switches:
+``'auto'`` routes a call into the hand-written CUDA kernels when the tensor it
+gets lies on a CUDA device.
 
 Importing this module pins float32 matmuls to full precision: TF32 keeps ~10
 mantissa bits, and the reference pins its matmuls to full f32 because reduced
@@ -40,6 +41,10 @@ class Config:
     std_floor: float = 1e-10
     # route tri_inv_lower's diagonal blocks into the triangular-inverse kernel
     cuda_tri_inv: bool = True
+    # factor each jitter-ladder attempt (n >= 2 * 256) by blocked_cholesky, its
+    # diagonal blocks in the batched Cholesky kernel; off, as the reference's
+    # pallas_chol_blocks is: the full-size cholesky_ex
+    cuda_chol_blocks: bool = False
 
 
 config = Config()

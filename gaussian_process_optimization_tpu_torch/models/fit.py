@@ -36,11 +36,15 @@ def make_objective(packer):
 class Fitter:
     """Multi-restart fit for one model structure (``Fitter``, fit.py:64).
     Restart 0 starts from the model's own parameters; the others from N(0, 1)
-    draws routed through each transform's ``random_restart``."""
+    draws routed through each transform's ``random_restart``. ``fix`` and
+    ``transform_overrides`` go to :func:`make_packer`. The objective factors
+    with the model's own ladder hint and policy (``GPRegression.jitter_hint``,
+    ``jitter_greedy``)."""
 
     def __init__(self, template_model: Any, num_restarts: int = 5, maxiter: int = 1000,
-                 tol: float = 1e-5):
-        self.packer = make_packer(template_model)
+                 tol: float = 1e-5, fix: tuple = (), transform_overrides: dict | None = None):
+        self.packer = make_packer(template_model, fix=fix,
+                                  transform_overrides=transform_overrides)
         self.num_restarts = num_restarts
         self.maxiter = maxiter
         self.tol = tol

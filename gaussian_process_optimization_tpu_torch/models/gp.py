@@ -14,6 +14,10 @@ backward passes, as in the reference:
 - :class:`ExactCore` — the jitter-ladder Cholesky and the half solve
   t = L^-1 Yc, with the closed-form pullback dKy = c_logdet Ky^-1 -
   c_quad alpha alpha^T (GPy's dL_dK). The ladder is never differentiated.
+
+The ladder starts at the model's ``jitter_hint`` and, with ``jitter_greedy``,
+keeps the first rung that factors (the BO wrappers' fit-trial policy,
+``models/bo_models.py``).
 """
 from __future__ import annotations
 
@@ -84,8 +88,8 @@ class ExactCore(torch.autograd.Function):
     from the Li it needs anyway."""
 
     @staticmethod
-    def forward(ctx, Ky, Yc):
-        L, jitter, ok, rung = linalg.jitchol_full(Ky)
+    def forward(ctx, Ky, Yc, hint, greedy):
+        L, jitter, ok, rung = linalg.jitchol_full(Ky, k_start=hint, greedy=greedy)
         t = linalg.blocked_solve_lower(L, Yc)
         logdet = linalg.logdet_from_chol(L)
         quad = torch.sum(t * t, dim=(-2, -1))
@@ -107,7 +111,7 @@ class ExactCore(torch.autograd.Function):
             dKy.sub_((alpha @ alpha.transpose(-1, -2)).mul_(c_quad[..., None, None]))
         if ctx.needs_input_grad[1]:
             dYc = _sum_to((2.0 * c_quad[..., None, None]) * alpha, ctx.yc_shape)
-        return dKy, dYc
+        return dKy, dYc, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +131,10 @@ class Posterior:
 @dataclasses.dataclass(frozen=True)
 class GPRegression:
     """Exact GP regression with a Gaussian likelihood. ``X (N, D)`` and
-    ``Y (N, P)`` may be padded to a fixed budget; ``mask (N,)`` flags real rows."""
+    ``Y (N, P)`` may be padded to a fixed budget; ``mask (N,)`` flags real rows.
+    ``jitter_hint`` (a scalar, None = 0) is the first ladder rung probed, a data
+    leaf; ``jitter_greedy`` keeps the first rung that factors instead of
+    verifying the minimal one (``ops/linalg.jitchol_full``)."""
 
     kern: Kernel = None
     likelihood_variance: torch.Tensor = None
@@ -135,6 +142,8 @@ class GPRegression:
     Y: torch.Tensor = None
     mask: torch.Tensor = None
     normalizer: Standardize = None
+    jitter_hint: torch.Tensor = None
+    jitter_greedy: bool = False
 
     @classmethod
     def create(cls, X, Y, kernel: Kernel | None = None, noise_var: float = 1.0,
@@ -165,6 +174,16 @@ class GPRegression:
         return cls(kern=kernel, likelihood_variance=noise.reshape(()), X=X, Y=Y,
                    mask=mask, normalizer=norm)
 
+    def with_data(self, X, Y, max_points: int | None = None) -> "GPRegression":
+        """The same model on new data (GPy ``set_XY``, gp.py:270-301): the
+        normalizer is refitted, and the ladder's hint and policy carry over."""
+        new = GPRegression.create(
+            X, Y, kernel=self.kern, noise_var=self.likelihood_variance,
+            normalizer=self.normalizer is not None, max_points=max_points,
+            dtype=self.X.dtype, device=self.X.device)
+        return dataclasses.replace(new, jitter_hint=self.jitter_hint,
+                                   jitter_greedy=self.jitter_greedy)
+
     @property
     def num_data(self):
         if self.mask is None:
@@ -191,7 +210,8 @@ class GPRegression:
         K = self.kern.K(self.X)
         Ky = AssembleKy.apply(K, self._effective_noise(K.dtype), self.mask)
         del K
-        logdet, quad, L, t, jitter, ok, rung = ExactCore.apply(Ky, Yc)
+        logdet, quad, L, t, jitter, ok, rung = ExactCore.apply(
+            Ky, Yc, self.jitter_hint, self.jitter_greedy)
         p = Yc.shape[-1]
         lml = 0.5 * (-self.num_data * p * LOG_2_PI - p * logdet - quad)
         return lml, L, t, jitter, ok, rung
@@ -207,13 +227,17 @@ class GPRegression:
         Li = linalg.tri_inv_lower(L) if precompute_inverse else None
         return Posterior(L=L, alpha=alpha, jitter=jitter, ok=ok, lml=lml, Li=Li, rung=rung)
 
+    def _cross(self, Xnew):
+        Kx = self.kern.K(self.X, Xnew)
+        if self.mask is not None:
+            Kx = Kx * self.mask[:, None]
+        return Kx
+
     def _raw_predict(self, Xnew, posterior: Posterior | None = None):
         """Latent mean and variance in normalized space (PosteriorExact._raw_predict).
         ``Xnew`` is ``(M, D)`` or lane-batched ``(B, M, D)``."""
         post = posterior if posterior is not None else self.inference()
-        Kx = self.kern.K(self.X, Xnew)
-        if self.mask is not None:
-            Kx = Kx * self.mask[:, None]
+        Kx = self._cross(Xnew)
         mu = Kx.transpose(-1, -2) @ post.alpha
         tmp = post.Li @ Kx if post.Li is not None else linalg.solve_lower(post.L, Kx)
         var = self.kern.Kdiag(Xnew) - torch.sum(torch.square(tmp), dim=-2)
@@ -228,3 +252,25 @@ class GPRegression:
             mu = self.normalizer.inverse_mean(mu)
             var = self.normalizer.inverse_variance(var)
         return mu, var
+
+    def predict_mean(self, Xnew, posterior: Posterior):
+        """The predictive mean alone, in original Y units (``predict``'s first
+        output without the variance's O(N^2 M) work)."""
+        mu = self._cross(Xnew).transpose(-1, -2) @ posterior.alpha
+        return self.normalizer.inverse_mean(mu) if self.normalizer is not None else mu
+
+    def predictive_gradients(self, Xnew, posterior: Posterior | None = None):
+        """(dmu/dXnew (M, D, P), dvar/dXnew (M, D)) of the latent prediction in Y
+        units (GPy gp.py:407). Each row of ``Xnew`` enters only its own
+        prediction, so one backward of a sum gives every row's gradient."""
+        post = posterior if posterior is not None else self.inference()
+        with torch.enable_grad():
+            X = Xnew.detach().requires_grad_(True)
+            mu, var = self._raw_predict(X, posterior=post)
+            if self.normalizer is not None:
+                mu = self.normalizer.inverse_mean(mu)
+                var = self.normalizer.inverse_variance(var)
+            dmu = torch.stack([torch.autograd.grad(mu[:, p].sum(), X, retain_graph=True)[0]
+                               for p in range(mu.shape[-1])], dim=-1)
+            (dvar,) = torch.autograd.grad(var.sum(), X)
+        return dmu, dvar

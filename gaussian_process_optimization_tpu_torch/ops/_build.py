@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-The sources in ``csrc/`` are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The library lands in
+The sources in ``csrc/`` are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library lands in
 ``_build/`` under a name keyed by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the last build. Nothing is fetched:
 ``nvcc`` comes from ``$CUDA_HOME``, ``/usr/local/cuda`` or ``PATH``.
@@ -23,12 +24,13 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argtypes; every function returns int (a cudaError_t)
 _SIGNATURES = {
     "gpo_bwd_row_tile": [],
+    "gpo_cholesky_blocks": [_P, _P, _I, _I, _P],
     "gpo_stationary_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     "gpo_stationary_k_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                              _L, _L, _I, _I, _I, _I, _P],
@@ -68,15 +70,26 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, log)
+                  for src, p, log in zip(cu, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({code}):\n{log}" for name, code, log in failed))
         tmp_out = Path(tmp) / out.name
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp_out), *cu],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_out),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        out.with_suffix(".log").write_text("".join(logs) + link.stdout + link.stderr)
         os.replace(tmp_out, out)  # atomic: a concurrent loader sees all or nothing
     return out
 

@@ -1,18 +1,24 @@
-"""CUDA kernel for batched triangular-inverse blocks (twin of the
-``tri_inv_blocks`` half of ``gaussian_process_optimization_tpu/ops/pallas_linalg.py``).
+"""CUDA kernels for batched diagonal blocks (twin of
+``gaussian_process_optimization_tpu/ops/pallas_linalg.py``).
 
-:func:`tri_inv_blocks` replaces the JAX package's ``pallas_linalg.tri_inv_blocks``
-(``_make_entry`` / ``_run_blocks`` / ``_make_triinv_kernel``): the inverse of
-every ``(nb, nb)`` lower-triangular block of a ``(..., nb, nb)`` stack in one
-launch. The TPU layout (whole lanes of blocks in VMEM) does not fit a Hopper
-block's shared memory; the CUDA design gives each block one 32-column strip of
-one lane's inverse (``csrc/tri_inv.cu``). The reference's batched Cholesky
-kernel, ``cholesky_blocks``, is off its default path and is not ported yet.
+Two kernels replace the JAX package's two Pallas kernels there (``_make_entry``
+/ ``_run_blocks`` with ``_make_triinv_kernel`` and ``_make_chol_kernel``):
+
+- :func:`tri_inv_blocks` (``csrc/tri_inv.cu``) — the inverse of every
+  ``(nb, nb)`` lower-triangular block of a ``(..., nb, nb)`` stack in one launch.
+  The TPU layout (whole lanes of blocks in VMEM) does not fit a Hopper block's
+  shared memory; each block owns one 32-column strip of one lane's inverse.
+- :func:`cholesky_blocks` (``csrc/chol_blocks.cu``) — the Cholesky factor of
+  every ``(nb, nb)`` block in one launch. One block owns one lane and factors
+  its packed lower triangle (128.5 KB at nb = 256) in shared memory. A lane
+  whose factorization meets a non-positive pivot comes out all NaN.
 
 Routing is the reference's gate (``_make_entry``): square blocks, ``nb`` a
 multiple of 32, float32. A CUDA tensor that passes it launches the kernel or
-raises; anything else, and every CPU tensor, takes the plain version, which is
-the reference's own fallback (a triangular solve against the identity).
+raises; anything else, and every CPU tensor, takes the plain version beside the
+kernel: a triangular solve against the identity, and ``cholesky_ex`` with the
+lanes it reports as failed set to NaN (the reference's fallback, XLA's Cholesky,
+returns NaN there).
 """
 from __future__ import annotations
 
@@ -28,6 +34,11 @@ _MAX_SMEM = 227 * 1024
 def tri_inv_plain(L: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand(L.shape)
     return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def cholesky_plain(A: torch.Tensor) -> torch.Tensor:
+    L, info = torch.linalg.cholesky_ex(A)
+    return L.masked_fill_((info != 0)[..., None, None], float("nan"))
 
 
 def _eligible(A: torch.Tensor) -> bool:
@@ -56,3 +67,30 @@ def tri_inv_blocks(A: torch.Tensor) -> torch.Tensor:
 
 
 tri_inv_blocks.launches = 0
+
+
+def _chol_smem(nb: int) -> int:
+    return 4 * (nb * (nb + 1) // 2 + nb)  # packed lower triangle + one column
+
+
+def cholesky_blocks(A: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor of each symmetric positive-definite ``(nb, nb)`` block of
+    ``A (..., nb, nb)``, lower, with an exactly zero strict upper triangle. A
+    lane that is not positive definite comes out all NaN."""
+    if not (A.is_cuda and _eligible(A)):
+        return cholesky_plain(A)
+    nb = A.shape[-1]
+    if _chol_smem(nb) > _MAX_SMEM:
+        raise ValueError(f"block size {nb} needs more shared memory than a block has")
+    flat = A.reshape(-1, nb, nb).contiguous()
+    out = torch.empty_like(flat)
+    if flat.shape[0]:
+        lib = _build.library()
+        _build.check(lib.gpo_cholesky_blocks(
+            flat.data_ptr(), out.data_ptr(), flat.shape[0], nb,
+            torch.cuda.current_stream().cuda_stream), "cholesky_blocks")
+        cholesky_blocks.launches += 1
+    return out.reshape(A.shape)
+
+
+cholesky_blocks.launches = 0

@@ -1,7 +1,9 @@
 """Dense linear algebra for exact GP inference (twin of ``gaussian_process_optimization_tpu/ops/linalg.py``).
 
-Every function takes leading lane axes. Full-size Cholesky factorizations and
-triangular solves are ``torch.linalg``'s; the diagonal blocks of
+Every function takes leading lane axes. Triangular solves are
+``torch.linalg``'s. The jitter ladder factors each attempt with ``cholesky_ex``,
+or with :func:`blocked_cholesky` (its diagonal blocks in the batched Cholesky
+kernel) when ``config.cuda_chol_blocks`` is on; the diagonal blocks of
 :func:`tri_inv_lower` route into the triangular-inverse kernel
 (``ops/cuda_linalg.py``).
 """
@@ -34,30 +36,69 @@ def tri_tdot(Li: torch.Tensor, nb: int = 512) -> torch.Tensor:
     return W
 
 
-def jitchol_full(A: torch.Tensor, k_start=None):
-    """Minimal-rung jitter-ladder Cholesky, per lane: ``(L, jitter, ok, rung)``.
+def blocked_cholesky(A: torch.Tensor, nb: int = 256) -> torch.Tensor:
+    """Blocked left-looking Cholesky (LAPACK ``potrf`` blocking) as a panel loop
+    of batched ops (the reference's ``blocked_cholesky``, linalg.py:38-91): per
+    panel, the Schur-updated diagonal block's Cholesky (the batched kernel when
+    ``config.cuda_chol_blocks``), a triangular solve for the panel below it, and
+    matmul updates. A lane whose diagonal block fails is NaN from that block on,
+    through the solves and updates, and in no other lane. Below ``2 * nb`` the
+    whole matrix takes the plain factorization."""
+
+    def diag_chol(blk):
+        if config.cuda_chol_blocks:
+            return cuda_linalg.cholesky_blocks(blk)
+        return cuda_linalg.cholesky_plain(blk)
+
+    n = A.shape[-1]
+    if n < 2 * nb:
+        return cuda_linalg.cholesky_plain(A)
+    L = torch.zeros_like(A)
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        Akk = A[..., k0:k1, k0:k1]
+        if k0 > 0:
+            Lrow = L[..., k0:k1, :k0]
+            Akk = Akk - Lrow @ Lrow.transpose(-1, -2)
+        Lkk = diag_chol(Akk)
+        L[..., k0:k1, k0:k1] = Lkk
+        if k1 < n:
+            Ap = A[..., k1:, k0:k1]
+            if k0 > 0:
+                Ap = Ap - L[..., k1:, :k0] @ L[..., k0:k1, :k0].transpose(-1, -2)
+            # X Lkk^T = Ap
+            L[..., k1:, k0:k1] = torch.linalg.solve_triangular(
+                Lkk.transpose(-1, -2), Ap, upper=True, left=False)
+    return L
+
+
+def jitchol_full(A: torch.Tensor, k_start=None, greedy: bool = False):
+    """Jitter-ladder Cholesky, per lane: ``(L, jitter, ok, rung)``.
 
     GPy's ladder (util/linalg.py:56-74) tries jitter 0, then mean(diag)*1e-6,
     multiplied by 10 each retry, and keeps the first success. Success is
     monotone in the jitter, so the reference (``_jitchol_loop``) finds the same
-    minimal rung by a galloping binary search; this is that search, with a lane
-    axis carrying each lane's own interval.
+    minimal rung by a galloping binary search from the hint ``k_start``; this is
+    that search, with a lane axis carrying each lane's own interval.
+    ``greedy=True`` is the reference's fit-trial policy: each lane walks up from
+    its hint and keeps its first success, which may lie above the minimal rung.
 
-    Failure signal: the reference tests the factor for finiteness, because
-    XLA's Cholesky returns NaN on a non-PD matrix. ``torch.linalg.cholesky_ex``
-    instead reports ``info > 0`` and may return an L that is entirely finite
-    (``diag(1, 1, -1e-3, 1)`` factors to a finite L with info = 3), so a
-    finiteness test would accept a failed factorization. The per-lane verdict
-    here is ``info == 0`` and finite, and a failed lane's L is set to NaN so
-    everything downstream of it sees what the reference sees.
+    Each attempt is one factorization of every lane: ``blocked_cholesky`` when
+    ``config.cuda_chol_blocks`` is on (itself ``cholesky_ex`` below two
+    256-blocks), else ``cholesky_ex``. The per-lane verdict is finiteness, as in the
+    reference, because both routes return a failed lane as NaN:
+    ``cholesky_ex`` itself reports a non-PD lane through ``info > 0`` and may
+    return an L that is entirely finite (``diag(1, 1, -1e-3, 1)`` factors to a
+    finite L with info = 3), so ``cholesky_plain`` sets such lanes to NaN.
 
-    Failed lanes (even the largest jitter fails) report ok=False and
-    rung = config.jitchol_maxtries + 1.
+    Failed lanes (even the largest jitter fails) report ok=False,
+    rung = config.jitchol_maxtries + 1, and the last attempt's L and jitter.
     """
     maxtries = config.jitchol_maxtries
     batch = A.shape[:-2]
     dev = A.device
     diag_mean = torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)
+    factor = blocked_cholesky if config.cuda_chol_blocks else cuda_linalg.cholesky_plain
 
     def attempt(k):
         scale = torch.pow(10.0, torch.clamp(k - 1, min=0).to(A.dtype))
@@ -65,9 +106,9 @@ def jitchol_full(A: torch.Tensor, k_start=None):
                              diag_mean * config.jitchol_base * scale)
         Aj = A.clone()
         Aj.diagonal(dim1=-2, dim2=-1).add_(jitter[..., None])
-        L, info = torch.linalg.cholesky_ex(Aj)
+        L = factor(Aj)
         del Aj
-        ok = (info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1)
+        ok = torch.isfinite(L).all(dim=-1).all(dim=-1)
         L.masked_fill_(~ok[..., None, None], float("nan"))
         return L, jitter, ok
 
@@ -78,6 +119,21 @@ def jitchol_full(A: torch.Tensor, k_start=None):
         h = torch.clamp(torch.floor(torch.nan_to_num(h)).to(torch.int64), 0, maxtries)
         h = h.expand(batch).clone()
     L_b, j_b, ok_b = attempt(h)
+
+    if greedy:
+        k = h
+        done = ok_b | (h >= maxtries)
+        while not bool(done.all()):
+            k = torch.where(done, k, k + 1)
+            L, jitter, ok = attempt(k)
+            take = ~done  # a searching lane records its success or its latest failure
+            L_b = torch.where(take[..., None, None], L, L_b)
+            del L
+            j_b = torch.where(take, jitter, j_b)
+            ok_b = ok_b | (take & ok)
+            done = done | (take & ok) | (k >= maxtries)
+        return L_b, j_b, ok_b, torch.where(ok_b, k, torch.full_like(k, maxtries + 1))
+
     lo = torch.where(ok_b, torch.zeros_like(h), h + 1)
     hi = torch.where(ok_b, h, torch.full_like(h, maxtries))
     done = (ok_b & (lo == hi)) | (lo > hi)

@@ -1,9 +1,11 @@
 """Y standardization (twin of ``gaussian_process_optimization_tpu/utils/normalizer.py``,
-GPy util/normalizer.py:9 ``Standardize``)."""
+GPy util/normalizer.py:9 ``Standardize``, and GPyOpt's 'stats' normalization
+of the BO loop, util/general.py:203-217)."""
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -27,3 +29,12 @@ class Standardize:
 
     def inverse_variance(self, var):
         return var * torch.square(self.std)
+
+
+def normalize_stats(Y):
+    """GPyOpt 'stats' normalization (util/general.py:211), host numpy:
+    (Y - mean) / std, or only Y - mean when every value is equal."""
+    Y = np.asarray(Y)
+    m = float(np.mean(Y))
+    s = float(np.std(Y))
+    return (Y - m) / s if s > 0 else Y - m

@@ -1,11 +1,18 @@
-"""The BO-iteration workload, through the port's own entry points.
+"""The bench's two workloads, through the port's own entry points.
 
-One BO iteration as the JAX package's ``bench.py`` (``run_ours``) defines it:
-a padded ``GPRegression`` with an ARD Matern52 kernel on the bench's data
-recipe, a multi-restart L-BFGS fit of the negative LML, the posterior with L^-1
-precomputed, an EI sweep over random candidates, and box-bounded value-only
-L-BFGS from the best few candidates. The sizes are arguments, so a test can run
-the same functions small; candidates and restart starts can be handed in.
+The main path, one BO iteration as the JAX package's ``bench.py`` (``run_ours``)
+defines it: a padded ``GPRegression`` with an ARD Matern52 kernel on the bench's
+data recipe, a multi-restart L-BFGS fit of the negative LML, the posterior with
+L^-1 precomputed, an EI sweep over random candidates, and box-bounded value-only
+L-BFGS from the best few candidates. Candidates and restart starts can be handed
+in.
+
+The thesis path (``run_gower_lp``, bench.py:177-213): ``BayesianOptimization``
+on 4 continuous and 2 discrete inputs with the Gower kernel, ``exact_feval``,
+and a local-penalization batch of 5, one ``suggest_next_locations`` per
+iteration (fit, Lipschitz estimate, 5 penalized argmaxes).
+
+The sizes are arguments, so a test can run the same functions small.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import numpy as np
 import torch
 
 from .bo.acquisitions import neg_ei
+from .bo.methods import BayesianOptimization
 from .kernels.stationary import Matern52
 from .models.fit import Fitter
 from .models.gp import GPRegression, Posterior
@@ -30,6 +38,11 @@ ACQ_SWEEP = 1000
 ACQ_ANCHORS = 5
 ACQ_STEPS = 50
 BOX = (-2.0, 2.0)
+# bench.py:187-203
+THESIS_BATCH = 5
+THESIS_DOMAIN = (
+    [{"name": f"x{i}", "type": "continuous", "domain": (-2.0, 2.0)} for i in range(4)]
+    + [{"name": f"d{i}", "type": "discrete", "domain": (0, 1, 2)} for i in range(2)])
 
 
 def bench_data(n: int = N, d: int = D, seed: int = 0):
@@ -93,3 +106,42 @@ def acquire(model: GPRegression, sweep: int = ACQ_SWEEP, anchors: int = ACQ_ANCH
     best = int(torch.argmin(res.f))
     return Acquisition(posterior=post, fmin=fmin, candidates=candidates, anchors=starts,
                        result=res, x=res.x[best], f=res.f[best])
+
+
+def thesis_data(n: int = N, seed: int = 0):
+    """The thesis recipe (bench.py:187-193), numpy float64: 4 continuous
+    inputs in [-2, 2] and 2 discrete ones in {0, 1, 2}."""
+    rng = np.random.default_rng(seed)
+    Xc = rng.uniform(-2.0, 2.0, (n, 4))
+    Xd = rng.integers(0, 3, (n, 2)).astype(float)
+    X = np.hstack([Xc, Xd])
+    Y = (np.sin(Xc[:, :1] * 2.0) + 0.3 * np.cos(Xc.sum(1, keepdims=True))
+         + 0.1 * Xd[:, :1] + 0.05 * rng.standard_normal((n, 1)))
+    return X, Y
+
+
+def thesis_bo(X, Y, restarts: int = FIT_RESTARTS, steps: int = FIT_STEPS,
+              batch: int = THESIS_BATCH, device=None,
+              dtype=torch.float64) -> BayesianOptimization:
+    """The bench's ask-tell optimizer (bench.py:198-203)."""
+    return BayesianOptimization(
+        f=None, domain=THESIS_DOMAIN, X=X, Y=Y, Gower=True, acquisition_type="EI",
+        evaluator_type="local_penalization", batch_size=batch, exact_feval=True, seed=0,
+        max_iters=steps, optimize_restarts=restarts, device=device, dtype=dtype)
+
+
+@dataclasses.dataclass
+class ThesisIteration:
+    batch: np.ndarray        # (batch, 6), objective space
+    fit_s: float             # refit (multi-restart fit and posterior)
+    estimate_L_s: float      # Lipschitz estimate
+    argmax_s: list           # one per penalized argmax
+
+
+def thesis_iteration(bo: BayesianOptimization) -> ThesisIteration:
+    """One ``suggest_next_locations`` and its host-clock split. Each piece ends
+    in a host read of its result, so its device work is inside its time."""
+    batch = bo.suggest_next_locations()
+    seconds = bo.evaluator.seconds
+    return ThesisIteration(batch=batch, fit_s=bo.fit_seconds,
+                           estimate_L_s=seconds["estimate_L"], argmax_s=seconds["argmax"])

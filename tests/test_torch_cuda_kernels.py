@@ -151,3 +151,87 @@ def test_lml_gradient_f32_kernels_match_f64(cuda):
     torch.testing.assert_close(f32, f64, rtol=5e-7, atol=0.0)
     np.testing.assert_allclose(g32.cpu().numpy(), g64.cpu().numpy(), rtol=2e-5,
                                atol=2e-5 * float(g64.abs().max()))
+
+
+def _spd_blocks(G, nb=256, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    A = torch.randn(G, nb, nb, generator=gen, dtype=torch.float64)
+    return (A @ A.mT + nb * torch.eye(nb, dtype=torch.float64)).float()
+
+
+def _chol_backward_error(A, L) -> float:
+    """max over entries of |L L^T - A| / (|L| |L^T|), in float64."""
+    Ld, Ad = L.double(), A.double()
+    R = (Ld @ Ld.mT - Ad).abs()
+    return float((R / (Ld.abs() @ Ld.abs().mT).clamp_min(1e-300)).max())
+
+
+@pytest.mark.parametrize("G", [1, 5])
+def test_cholesky_blocks_match_plain(G, cuda):
+    """B4 against its plain version at nb = 256 (rtol 1e-4 of the entry plus
+    its block's max), an exactly zero strict upper triangle, Cholesky's
+    componentwise backward error within gamma_257 of float32 (Higham, Thm
+    10.3), and two launches bitwise equal."""
+    A = _spd_blocks(G).to(cuda)
+    got = cl.cholesky_blocks(A)
+    want = cl.cholesky_plain(A).double()
+    err = (got.double() - want).abs()
+    scale = want.abs().amax(dim=(-2, -1), keepdim=True)
+    assert bool((err <= 1e-4 * (want.abs() + scale)).all()), float(err.max())
+    assert bool((torch.triu(got, 1) == 0).all())
+    n1, u = 257, 2.0 ** -24
+    assert _chol_backward_error(A, got) <= n1 * u / (1 - n1 * u)
+    assert torch.equal(got, cl.cholesky_blocks(A))
+
+
+def test_cholesky_blocks_repeated_launches_agree(cuda):
+    """Two lanes per SM, launched 20 times: every launch bitwise equal to the
+    first and within the backward-error bound. A read of a shared-memory entry
+    that another warp overwrites in the same column step would show here as a
+    launch that differs."""
+    G = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    A = _spd_blocks(G, seed=2).to(cuda)
+    first = cl.cholesky_blocks(A)
+    for _ in range(19):
+        assert torch.equal(cl.cholesky_blocks(A), first)
+    n1, u = 257, 2.0 ** -24
+    assert _chol_backward_error(A, first) <= n1 * u / (1 - n1 * u)
+
+
+def test_cholesky_blocks_nan_stays_in_its_lane(cuda):
+    """A -I lane comes out all NaN; the other lanes equal the same lanes
+    factored alone, bit for bit."""
+    A = _spd_blocks(3, seed=1).to(cuda)
+    A[1] = -torch.eye(256, device=cuda)
+    got = cl.cholesky_blocks(A)
+    assert bool(torch.isnan(got[1]).all())
+    for g in (0, 2):
+        assert torch.equal(got[g], cl.cholesky_blocks(A[g:g + 1].contiguous())[0])
+
+
+def test_blocked_ladder_through_b4_matches_cholesky_ex(cuda):
+    """The jitter ladder with cuda_chol_blocks on (blocked_cholesky, diagonal
+    blocks in B4) against the default route (full cholesky_ex) on a bench-data
+    Matern52 Gram matrix at N=1024, float32: the same rung per lane, and both
+    factors reproduce Ky to n u of its largest entry (u = 2^-24)."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.ops import linalg
+
+    X, Y = bench_data(n=1024)
+    m = make_model(X, Y, dtype=torch.float32, device=cuda)
+    Ky = m.kern.K(m.X) + 0.05 * torch.eye(1024, device=cuda)
+    Ky = torch.stack([Ky, Ky * 2.0])
+    before = cl.cholesky_blocks.launches
+    old = config.cuda_chol_blocks
+    try:
+        config.cuda_chol_blocks = True
+        L, _, ok, rung = linalg.jitchol_full(Ky)
+    finally:
+        config.cuda_chol_blocks = old
+    assert cl.cholesky_blocks.launches > before
+    L0, _, ok0, rung0 = linalg.jitchol_full(Ky)
+    assert bool(ok.all()) and torch.equal(rung, rung0)
+    for f in (L, L0):
+        f = f.double()
+        res = float((f @ f.mT - Ky.double()).abs().max() / Ky.abs().max())
+        assert res <= 1024 * 2.0 ** -24, res
