@@ -7,16 +7,23 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing its own lines:
   1. device   — refuses to run without CUDA; prints the card's name and power limit;
+                checks that the entry points build on the card when no device is
+                given;
   2. build    — compiles the CUDA kernels from ``csrc/`` (nvcc, sm_90a, one process
                 per source) and times it;
   3. kernels  — each kernel against its plain PyTorch version at its path's
-                shapes, with both times (median of CUDA-event timings after warm-up),
-                and one full (5, 4096, 4096) factorization timed three ways:
-                cholesky_ex, blocked_cholesky with B4, blocked_cholesky with plain
-                diagonal blocks;
+                shapes, with its time, the plain version's, the one PyTorch call
+                that computes the same function where there is one (B3:
+                solve_triangular against I, B4: cholesky_ex) and the roofline
+                bound from the shapes (bytes at 3.35 TB/s or f32 flops at
+                67 TFLOP/s, the larger); times are medians of CUDA-event timings
+                of back-to-back calls after warm-up; and one full (5, 4096, 4096)
+                factorization timed three ways: cholesky_ex, blocked_cholesky with
+                B4, blocked_cholesky with plain diagonal blocks;
   4. main     — one BO iteration at the bench's full size (N=4096, D=6, 5x30 fit,
                 1000-candidate EI sweep, 5x50 anchors, float32), twice; the second
-                run's kernel launch counts must all be non-zero; the fitted model's
+                run's launch counts of B1-B3 must be non-zero (B4 is off this
+                path and counted too); the fitted model's
                 LML, its gradient and the EI at the argmax are held against a float64
                 recomputation on the card;
   5. B3 again — on the diagonal blocks of the fitted model's own Cholesky factor,
@@ -27,8 +34,8 @@ Phases, each printing its own lines:
                 batch of 5 through BayesianOptimization.suggest_next_locations) with
                 ``config.cuda_chol_blocks`` on, twice (cold, then warm on perturbed
                 Y); the time split into fit, Lipschitz estimate and 5 penalized
-                argmaxes, the ladder's rungs, peak memory, B3 and B4 launch counts
-                (both must be non-zero); the batch, the hint carried between the
+                argmaxes, the ladder's rungs, peak memory, the four kernels' launch
+                counts (B3 and B4 must be non-zero); the batch, the hint carried between the
                 calls, B4 on the fitted model's own diagonal blocks, the
                 posterior factor's backward error, and the -LML against float64
                 on the factor's own L L^T are checked; the -LML against float64
@@ -52,20 +59,56 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 
-def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def _time_ms(fn, calls: int = 20, rounds: int = 5, warmup: int = 2) -> float:
+    """Median over ``rounds`` of the mean time of ``calls`` back-to-back calls,
+    CUDA events around each run: the host's launch overhead overlaps the
+    device's work, as in a stream of calls, wherever the call is device-bound."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+# Roofline of one NVIDIA H100 SXM at its 700 W limit (data sheet): HBM3 bytes
+# per second, and float32 flops per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the flops over the f32 rate, and which of the two it is."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t = max(t_bytes, t_flops)
+    return {"bound_ms": t * 1e3, "bound_us": t * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# Flops per entry of a stationary K (B1) and of its parameter backward (B2),
+# counted from their formulas with d input dimensions: the scaled difference,
+# its square and the sum are 4 per dimension, the Matern52 profile (sqrt, exp
+# and the polynomial) about 10; the backward recomputes r, forms dK/dr / r and
+# G K, and accumulates one term per lengthscale, about 7 per dimension and 20.
+def _k_flops(d: int) -> int:
+    return 4 * d + 10
+
+
+def _k_bwd_flops(d: int) -> int:
+    return 7 * d + 20
 
 
 def _max_err(got, want) -> float:
@@ -153,6 +196,8 @@ def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs on a GPU only")
+    if not (ROOT / "gaussian_process_optimization_tpu_torch").is_dir():
+        raise SystemExit("chip_smoke: the port's package is not beside this script")
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -160,6 +205,30 @@ def phase_device():
           f"{torch.cuda.device_count()} device(s)")
     print(smi)
     return smi
+
+
+def phase_default_device():
+    """A bare call of each entry point builds on the card."""
+    from gaussian_process_optimization_tpu_torch import convert, workload
+    from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52
+    from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
+    from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
+
+    X, Y = workload.thesis_data(n=16)
+    model = workload.make_model(X, Y)
+    built = {
+        "make_model": model.X,
+        "GPRegression.create": GPRegression.create(X, Y).X,
+        "Matern52.create": Matern52.create(6).variance,
+        "GPModel": GPModel().device,
+        "gp_from_leaves": convert.gp_from_leaves(convert.leaves_of(model)).X,
+        "thesis_bo": workload.thesis_bo(X, Y).model.device,
+    }
+    devices = {k: (v if isinstance(v, torch.device) else v.device).type
+               for k, v in built.items()}
+    print(f"# entry points with no device given build on: {devices}")
+    if set(devices.values()) != {"cuda"}:
+        raise AssertionError(f"an entry point built off the card: {devices}")
 
 
 def phase_build():
@@ -172,7 +241,7 @@ def phase_build():
     print(f"# build: {path.relative_to(ROOT)} in {seconds:.2f} s")
     log = path.with_suffix(".log")
     for line in log.read_text().splitlines() if log.exists() else []:
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"# ptxas: {line.strip()}")
     return seconds
 
@@ -205,13 +274,16 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
         want = ck.k_build_plain(X, Z, p, "matern52", True)
         _close(f"B1 {tag}", got, want, rtol=2e-5, atol=2e-6)
         errs.append(_max_err(got, want))
-        del got, want
         ms = _time_ms(lambda: ck.stationary_k_build(X, Z, p, "matern52", True))
         plain = _time_ms(lambda: ck.k_build_plain(X, Z, p, "matern52", True))
-        print(f"# B1 stationary_k_build {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        inputs = (X, p) if Z is X else (X, Z, p)  # K(X, X) reads X once
+        bound = _bound(_nbytes(*inputs, got), got.numel() * _k_flops(X.shape[-1]))
+        del got, want
+        print(f"# B1 stationary_k_build {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         if tag == fit_tag:
-            rows["B1"] = (ms, plain)
-    rows["B1"] = rows["B1"] + (max(errs),)
+            rows["B1"] = {"ms": ms, "plain_ms": plain, "library_ms": None, **bound}
+    rows["B1"]["max_abs_err"] = max(errs)
 
     # B2: K backward. Parameter gradients (what the fit asks for) at the fit
     # shape, against the plain version in float64 on the card; dX and dZ at the
@@ -241,12 +313,30 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
                                                    False, False, True))
     plain = _time_ms(lambda: ck.k_backward_plain(X, X, p5, G, "matern52", True,
                                                  False, False, True))
+    bound = _bound(_nbytes(X, p5, G, dp), G.numel() * _k_bwd_flops(X.shape[-1]))
     print(f"# B2 stationary_k_backward {fit_tag} (parameter gradients): "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    rows["B2"] = (ms, plain, max(errs))
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
+    rows["B2"] = {"ms": ms, "plain_ms": plain, "library_ms": None, **bound,
+                  "max_abs_err": max(errs)}
     del G, Gs
 
-    # B3: triangular-inverse blocks, nb = 256: G = 80 (fit backward), 16 (posterior).
+    # B3 and B4 on blocks of nb = 256, each beside the one PyTorch call that
+    # computes the same function, at both shapes its paths give it. Each lane
+    # reads the lower triangle of one block (both functions use nothing else),
+    # writes one whole block and does nb^3 / 3 flops.
+    def block_row(name, kernel, plain, library, inp):
+        ms, plain_ms, lib_ms = _time_ms(kernel), _time_ms(plain), _time_ms(library)
+        nb = inp.shape[-1]
+        nbytes = inp.shape[0] * (nb * (nb + 1) // 2 + nb * nb) * inp.element_size()
+        bound = _bound(nbytes, inp.shape[0] * nb ** 3 / 3)
+        print(f"# {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); "
+              f"the kernel is {'faster' if ms < lib_ms else 'NOT faster'} than the library "
+              f"call ({lib_ms / ms:.2f}x)")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bound}
+
+    # B3: triangular-inverse blocks: G = 80 (fit backward), 16 (posterior).
     # These inputs are well conditioned; phase_tri_inv_on_main_path repeats the
     # check on the diagonal blocks of the main path's own Cholesky factor.
     errs = []
@@ -255,15 +345,17 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
         L = torch.linalg.cholesky(A @ A.mT + 256 * torch.eye(256, device=dev)).contiguous()
         got = cl.tri_inv_blocks(L)
         want = cl.tri_inv_plain(L)
+        if not torch.equal(got, cl.tri_inv_blocks(L)):
+            raise AssertionError("B3: two launches differ")
         errs.append(_check_tri_inv(f"B3 G={g} (random SPD)", L, got, want)[0])
-        ms = _time_ms(lambda: cl.tri_inv_blocks(L))
-        plain = _time_ms(lambda: cl.tri_inv_plain(L))
-        print(f"# B3 tri_inv_blocks G={g} nb=256: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        if g == 80:
-            rows["B3"] = (ms, plain)
-    rows["B3"] = rows["B3"] + (max(errs),)
+        eye = torch.eye(256, device=dev).expand(L.shape)
+        row = block_row(f"B3 tri_inv_blocks G={g} nb=256", lambda: cl.tri_inv_blocks(L),
+                        lambda: cl.tri_inv_plain(L),
+                        lambda: torch.linalg.solve_triangular(L, eye, upper=False), L)
+        rows.setdefault("B3", row)
+    rows["B3"]["max_abs_err"] = max(errs)
 
-    # B4: Cholesky blocks, nb = 256: G = 5 (a fit trial's 5 lanes), 1 (posterior)
+    # B4: Cholesky blocks: G = 5 (a fit trial's 5 lanes), 1 (posterior)
     errs = []
     for g in (5, 1):
         A = torch.randn(g, 256, 256, generator=gen, device=dev)
@@ -272,16 +364,14 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
         if not torch.equal(got, cl.cholesky_blocks(A)):
             raise AssertionError("B4: two launches differ")
         errs.append(_check_chol(f"B4 G={g} (random SPD)", A, got, cl.cholesky_plain(A)))
-        ms = _time_ms(lambda: cl.cholesky_blocks(A))
-        plain = _time_ms(lambda: cl.cholesky_plain(A))
-        print(f"# B4 cholesky_blocks G={g} nb=256: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        if g == 5:
-            rows["B4"] = (ms, plain)
+        row = block_row(f"B4 cholesky_blocks G={g} nb=256", lambda: cl.cholesky_blocks(A),
+                        lambda: cl.cholesky_plain(A), lambda: torch.linalg.cholesky_ex(A), A)
+        rows.setdefault("B4", row)
     bad = cl.cholesky_blocks(torch.stack([-torch.eye(256, device=dev), A[0]]))
     if not (bool(torch.isnan(bad[0]).all()) and torch.equal(bad[1], got[0])):
         raise AssertionError("B4: a -I lane must come out all NaN, and the lane beside "
                              "it equal to that lane factored alone")
-    rows["B4"] = rows["B4"] + (max(errs),)
+    rows["B4"]["max_abs_err"] = max(errs)
     del A, got, bad
 
     # one full factorization, three ways, on the fit shape's Matern52 Gram
@@ -302,11 +392,11 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
             if not res <= n * 2.0 ** -24:
                 raise AssertionError(f"{route}: the factor does not reproduce Ky")
             del Lb
-            times[route] = _time_ms(lambda: linalg.blocked_cholesky(Ky), reps=5)
+            times[route] = _time_ms(lambda: linalg.blocked_cholesky(Ky), calls=5)
     finally:
         config.cuda_chol_blocks = old
     times["cholesky_ex (the default ladder route)"] = _time_ms(
-        lambda: torch.linalg.cholesky_ex(Ky), reps=5)
+        lambda: torch.linalg.cholesky_ex(Ky), calls=5)
     for route, ms in times.items():
         print(f"# full factorization 5x{n}x{n} f32, {route}: {ms:.4f} ms")
     return rows
@@ -419,7 +509,7 @@ def phase_main(dev):
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
     counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
-                "B3": cl.tri_inv_blocks}
+                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
     *_, fit_cold, acq_cold = _run_main_path(dev, 1)
     print(f"# main path, first run: fit {fit_cold:.3f} s, acquisition {acq_cold:.3f} s")
 
@@ -447,8 +537,8 @@ def phase_main(dev):
         raise AssertionError("main path: posterior factorization failed")
     if acq.x.shape != (6,) or not bool(((acq.x >= -2.0) & (acq.x <= 2.0)).all()):
         raise AssertionError(f"main path: argmax {acq.x} outside the box")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("B1", "B2", "B3"):  # B4 is off the main path (cuda_chol_blocks off)
+        if launches[k] <= 0:
             raise AssertionError(f"main path: kernel {k} was never launched")
 
     # reference: float64 recomputation on the card (plain path, no kernels).
@@ -512,10 +602,12 @@ def phase_thesis(dev, nb: int = 256):
 
     from gaussian_process_optimization_tpu_torch import workload
     from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
     from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
-    counters = {"B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
+                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
     X, Y = workload.thesis_data()
     old = config.cuda_chol_blocks
     config.cuda_chol_blocks = True
@@ -552,8 +644,8 @@ def phase_thesis(dev, nb: int = 256):
                 raise AssertionError(f"thesis: repeated rows in the batch: {batch}")
             if not bool(post.ok):
                 raise AssertionError("thesis: posterior factorization failed")
-            for k, n in launches.items():
-                if n <= 0:
+            for k in ("B3", "B4"):  # the Gower K has no kernel
+                if launches[k] <= 0:
                     raise AssertionError(f"thesis: kernel {k} was never launched")
         first, second = bo.model.ladder
         if second["fit_hint"] != first["posterior_rung"]:
@@ -609,15 +701,14 @@ def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda", 0)
+    phase_default_device()
     phase_build()
     rows = phase_kernels(dev)
     launches, _, _, L = phase_main(dev)
-    ms, plain, err = rows["B3"]
-    rows["B3"] = (ms, plain, max(err, phase_tri_inv_on_main_path(L)))
+    rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], phase_tri_inv_on_main_path(L))
     del L
     thesis_launches, b4_err = phase_thesis(dev)
-    ms, plain, err = rows["B4"]
-    rows["B4"] = (ms, plain, max(err, b4_err))
+    rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_err)
     # B1 and B2 run on the main path, B4 on the thesis path, B3 on both
     launches["B4"] = thesis_launches["B4"]
     sources = {
@@ -633,10 +724,13 @@ def main():
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():
-        ms, plain, err = rows[key]
+        r = rows[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain})
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_us": r["bound_us"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

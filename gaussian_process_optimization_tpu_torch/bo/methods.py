@@ -5,8 +5,9 @@ util/arguments_manager.py:9 ``ArgumentsManager``).
 Ported choices: model 'GP' (with the reference author's ``Gower`` kwarg),
 acquisition 'EI', evaluators 'sequential' and 'local_penalization', the 'lbfgs'
 acquisition optimizer, the 'random' initial design. ``device`` and ``dtype``
-kwargs place the surrogate (CPU float64 by default). A kwarg the port does not
-read raises, so a setting is never silently dropped.
+kwargs place the surrogate (on the card in float64 by default; ``device="cpu"``
+for the CPU). A kwarg the port does not read raises, so a setting is never
+silently dropped.
 """
 from __future__ import annotations
 

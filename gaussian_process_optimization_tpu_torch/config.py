@@ -3,7 +3,8 @@
 The numeric floors and the jitter-ladder shape are the reference's. Kernel routing
 mirrors its ``use_pallas`` / ``pallas_tri_inv`` / ``pallas_chol_blocks`` switches:
 ``'auto'`` routes a call into the hand-written CUDA kernels when the tensor it
-gets lies on a CUDA device.
+gets lies on a CUDA device. :func:`resolve_device` gives every entry point its
+device: the card unless the caller names another.
 
 Importing this module pins float32 matmuls to full precision: TF32 keeps ~10
 mantissa bits, and the reference pins its matmuls to full f32 because reduced
@@ -48,6 +49,18 @@ class Config:
 
 
 config = Config()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point builds on: ``device`` if given, else the card.
+    With no CUDA device a bare call raises rather than run on the CPU; pass
+    ``device="cpu"`` for that."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU unless asked "
+                           "otherwise; pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
 
 
 def kernels_enabled(t: torch.Tensor) -> bool:

@@ -16,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .kernels.gower import Gower
 from .kernels.stationary import FAMILY_CLASSES
 from .models.gp import GPRegression
@@ -27,7 +28,9 @@ def gp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
                    device=None) -> GPRegression:
     """``gower``: ``{"cont_dims": ..., "disc_dims": ..., "gpy_compat": ...}`` for a
     Gower kernel over a ``family`` base (the BO wrappers' kernel); None for a
-    plain stationary kernel."""
+    plain stationary kernel. ``device`` None means the card."""
+    device = resolve_device(device)
+
     def t(key):
         return torch.tensor(np.asarray(leaves[key]), dtype=dtype, device=device)
 

@@ -3,100 +3,379 @@
 // Replaces, in the JAX package, ops/pallas_linalg.py: cholesky_blocks, built by
 // _make_entry, launched by _run_blocks, body _make_chol_kernel.
 //
-// The TPU kernel keeps eight whole lanes of blocks in VMEM and runs a
-// right-looking factorization over 32-column micro-panels, vectorized across
-// lanes. A 256x256 f32 block is 256 KB, more than the 227 KB of shared memory
-// a Hopper block can use, but its lower triangle packed by rows is
-// nb (nb + 1) / 2 floats, 128.5 KB at nb = 256. So here one block owns one
-// lane: it loads the lower triangle once into shared memory, factors it there
-// column by column (right-looking: scale the column by its pivot's square
-// root, then subtract its rank-1 update from the trailing triangle), and
-// stores L once, with exact zeros above the diagonal. The current column is
-// also kept in a separate vector, so the update reads it without bank
-// conflicts. One warp updates one packed row at a time, its lanes on
-// consecutive columns. Each entry's updates run in one fixed order, so two
-// launches give the same bits.
+// Bound. Per lane the function reads the lower triangle of one nb x nb block
+// (nb (nb + 1) / 2 floats: the upper triangle is never read), writes one whole
+// block (nb^2 floats), 394 KB in all at nb = 256, and does nb^3 / 3 flops
+// (5.6 MFLOP): at G = 5 that is 0.59 us of memory time at 3.35 TB/s against
+// 0.42 us of f32 FMA time at 67 TFLOP/s. Neither is what limits a
+// one-block-per-lane factorization: its dependency chain is. Done column by
+// column, that chain is nb steps with two block-wide barriers each (512
+// barriers at nb = 256).
+//
+// Design: a tiled right-looking factorization in one block of 8 warps per
+// lane. The lane's lower triangle lives in shared memory as 32 x 32 tiles,
+// each column-major with a swizzle (see at()): 36 tiles, 144 KB at nb = 256.
+// It is loaded once and L stored once, with 16-byte accesses along the rows of
+// the block; A's upper triangle is never used, L's is written as exact zeros,
+// and each panel of L is stored as soon as it is final. For each 32-wide
+// panel k:
+//   - one warp factors the diagonal tile in registers (lane r holds row r; the
+//     column passes by __shfl_sync; no block barrier inside);
+//   - the warps below solve their panel tiles against it by substitution over
+//     the columns (X L_kk^T = A_ik), one tile per warp, in parallel;
+//   - six warps apply the rank-32 trailing update, C -= A B^T on pairs of
+//     32 x 32 tiles along a row, as register-tiled FFMA: each lane keeps 8 x 4
+//     entries of each tile of the pair in registers and reads 16 panel values
+//     per k-step with four 16-byte broadcast loads: a sixteenth of a load
+//     instruction per multiply-add, where the column algorithm spends two
+//     shared-memory loads and a store on each;
+//   - lookahead: warp 0 and warp 4 (the warps of one scheduler) update the next
+//     diagonal tile first, then warp 0 factors it while warp 4 stores panel k
+//     and the six others update the rest of the trailing triangle. The
+//     diagonal factors (32 dependent square roots each) are the critical path,
+//     so no update shares their scheduler.
+// So a lane takes 2 barriers per panel (about 18 in all), not 2 per column.
+// Every entry's updates are subtracted in the column algorithm's order (p
+// ascending), with no atomics, so two launches give the same bits. Full f32
+// FFMA and no tensor cores: wgmma on f32 operands runs in TF32, which the
+// port has turned off.
+//
+// Rounding. An entry of column j (1-based) is one chain of j - 1 fmaf, one
+// rounding each, and then its pivot step, which is not IEEE: r_j, the pivot
+// p_j's reciprocal square root, is rsqrtf (within 2 ulp) refined by one Newton
+// step, so within 2.5 u + O(u^2) of 1 / sqrt(p_j) (u = 2^-24: the Newton step
+// squares rsqrtf's error, its three roundings add u / 2 + u + u), and
+// l_jj = fl(p_j r_j), l_ij = fl(s_ij r_j). So p_j = l_jj^2 and s_ij = l_ij l_jj
+// hold to a relative 7 u + O(u^2), where IEEE sqrt and division give 2 u and
+// u. Carried through Higham's proof (Accuracy and Stability of Numerical
+// Algorithms, Lemma 8.4 and Thm 10.3) with these counts, the backward error is
+// |L L^T - A| <= gamma_{nb+7} |L| |L^T|; the column algorithm with IEEE
+// operations has gamma_{nb+1}. The checks (chip_smoke.py, the card tests)
+// hold the kernel to gamma_{nb+1}, 2.3% below what is proved here at
+// nb = 256; it reads 12-15x under that (PERF.md).
 //
 // A pivot that is not positive (or is NaN) stops the lane's factorization and
 // its whole output block is NaN; other lanes are untouched. That is the
 // failure signal the jitter ladder reads (finiteness per lane).
-//
-// Bound: the column recursion (nb steps, two barriers each) and shared-memory
-// latency: nb^3/6 multiply-adds per lane over one block of 16 warps. The bytes
-// (one nb^2 read and one nb^2 write per lane) are small. A blocked, wgmma form
-// of the trailing update is later work.
 
 #include <cuda_runtime.h>
 
+#include "block_smem.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kT = 32;          // tile edge
+constexpr int kTile = kT * kT;  // floats per tile
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
-__global__ void chol_blocks_kernel(const float* __restrict__ A, float* __restrict__ out,
-                                   int nb) {
-  extern __shared__ float smem[];
-  float* a = smem;                  // packed lower triangle, row i at a[tri(i)]
-  float* col = smem + tri(nb);      // column j of L, rows j+1..nb-1
-  const long long base = (long long)blockIdx.x * nb * nb;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
+// Tile (i, j), i >= j, of the lane's lower triangle.
+__device__ __forceinline__ float* tile(float* tiles, int i, int j) {
+  return tiles + (tri(i) + j) * kTile;
+}
 
-  for (int i = warp; i < nb; i += kWarps) {
-    const float* src = A + base + (long long)i * nb;
-    for (int k = lane; k <= i; k += 32) a[tri(i) + k] = src[k];
+// Entry (r, c) of a tile: column-major, the row index XOR-swizzled by the
+// column, so that lanes reading one row (over columns) or one column (over
+// rows) hit 32 different banks. Aligned runs of 4 or 8 rows of a column stay
+// contiguous (permuted inside by the column's low bits), so a column is read
+// with 16-byte loads.
+__device__ __forceinline__ int at(int r, int c) { return c * kT + (r ^ c); }
+
+// One warp factors the diagonal tile D in place (lane r holds row r) and
+// writes the reciprocals of L's diagonal to invd. Entries above the diagonal
+// take no part (their multiplier is 0) and are never read. Returns false if a
+// pivot was not positive. Every lane also keeps the whole diagonal, updated
+// from the same broadcasts with the same operations, so the next pivot is at
+// hand without a shuffle. The pivot's reciprocal square root is the hardware
+// approximation refined by one Newton step (within 2.5 u, see the header;
+// the IEEE square root and division are branches around a slow path, which keep
+// the compiler from overlapping one column's work with the next and made the
+// tile twice as slow): a column's chain is that, one product, one shuffle and
+// one multiply-add.
+__device__ __forceinline__ bool factor_diag(float* D, float* invd, int lane) {
+  float a[kT], dg[kT];
+#pragma unroll
+  for (int c = 0; c < kT; ++c) {
+    a[c] = D[at(lane, c)];
+    dg[c] = D[at(c, c)];
+  }
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < kT; ++j) {
+    const float piv = dg[j];
+    ok = ok && piv > 0.0f;  // false for NaN
+    const float y = rsqrtf(piv);
+    const float inv = y * fmaf(-0.5f * piv * y, y, 1.5f);
+    const float l = lane > j ? a[j] * inv : 0.0f;
+    a[j] = lane == j ? piv * inv : l;
+    if (lane == j) invd[j] = inv;
+#pragma unroll
+    for (int c = j + 1; c < kT; ++c) {
+      const float lc = __shfl_sync(kFull, l, c);
+      a[c] = fmaf(-l, lc, a[c]);
+      dg[c] = fmaf(-lc, lc, dg[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kT; ++c) D[at(lane, c)] = a[c];
+  return ok;
+}
+
+// One warp solves X L_kk^T = B for the panel tile B in place (lane r holds row
+// r): x_c = (b_c - sum_{p<c} x_p L_kk[c][p]) / L_kk[c][c], right-looking over p.
+__device__ __forceinline__ void solve_panel(float* B, const float* Lkk, const float* invd, int lane) {
+  float x[kT];
+#pragma unroll
+  for (int c = 0; c < kT; ++c) x[c] = B[at(lane, c)];
+#pragma unroll
+  for (int p = 0; p < kT; ++p) {
+    x[p] *= invd[p];
+    const float4* col = reinterpret_cast<const float4*>(Lkk + p * kT);  // column p
+#pragma unroll
+    for (int q = 0; q < kT / 4; ++q) {
+      if (4 * q + 3 <= p) continue;
+      const float4 v = col[q ^ (p >> 2)];  // rows 4q .. 4q + 3, permuted by p % 4
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int c = 4 * q + t;
+        if (c > p) x[c] = fmaf(-x[p], e[t ^ (p & 3)], x[c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kT; ++c) B[at(lane, c)] = x[c];
+}
+
+// C_w -= A B_w^T for W side-by-side 32 x 32 tiles of one tile row: C_w tile
+// (i, j + w), A tile (i, k), B_w tile (j + w, k). Lane (rg, cg) = (lane % 4,
+// lane / 4) owns rows 8 rg .. 8 rg + 7 and columns 4 cg .. 4 cg + 3 of each
+// C_w in registers; per p it loads 8 values of A's column p and 4 of each
+// B_w's, 16-byte loads that lanes sharing rg (or cg) broadcast. At W = 2 a
+// lane does 64 multiply-adds per 64 bytes read, which keeps the FMA units,
+// not shared memory, the limit.
+template <int W>
+__device__ __forceinline__ void update_tiles(float* const (&C)[W], const float* A,
+                                             const float* const (&B)[W], int lane) {
+  const int r0 = 8 * (lane & 3), c0 = 4 * (lane >> 2);
+  float acc[W][4][8];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) acc[w][n][m] = C[w][at(r0 + m, c0 + n)];
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kT; ++p) {
+    // rows r0 .. r0 + 7 of column p: an aligned run of 8, row r0 + m at m ^ (p % 8);
+    // rows c0 .. c0 + 3 of B_w's column p: a run of 4, row c0 + n at n ^ (p % 4)
+    const float* ap = A + p * kT + (r0 ^ (p & 24));
+    const float4 alo = *reinterpret_cast<const float4*>(ap);
+    const float4 ahi = *reinterpret_cast<const float4*>(ap + 4);
+    const float a8[8] = {alo.x, alo.y, alo.z, alo.w, ahi.x, ahi.y, ahi.z, ahi.w};
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float4 bv = *reinterpret_cast<const float4*>(B[w] + p * kT + (c0 ^ (p & 28)));
+      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+          acc[w][n][m] = fmaf(-a8[m ^ (p & 7)], b4[n ^ (p & 3)], acc[w][n][m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) C[w][at(r0 + m, c0 + n)] = acc[w][n][m];
+    }
+  }
+}
+
+// Columns cb .. cb + 15 of C -= A B^T: one of two warps' share of the next
+// diagonal tile's update. The lane owns rows 8 (lane % 4) .. + 7 of columns
+// cb + 2 (lane / 4) and the one after.
+__device__ __forceinline__ void update_cols(float* C, const float* A, const float* B, int cb,
+                                            int lane) {
+  const int r0 = 8 * (lane & 3), c = cb + 2 * (lane >> 2);
+  float acc[2][8];
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int m = 0; m < 8; ++m) acc[n][m] = C[at(r0 + m, c + n)];
+  }
+  for (int p0 = 0; p0 < kT; p0 += 8) {
+#pragma unroll
+    for (int pi = 0; pi < 8; ++pi) {
+      const int p = p0 + pi;
+      const float* ap = A + p * kT + (r0 ^ p0);
+      const float4 alo = *reinterpret_cast<const float4*>(ap);
+      const float4 ahi = *reinterpret_cast<const float4*>(ap + 4);
+      const float a8[8] = {alo.x, alo.y, alo.z, alo.w, ahi.x, ahi.y, ahi.z, ahi.w};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float b = B[at(c + n, p)];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) acc[n][m] = fmaf(-a8[m ^ pi], b, acc[n][m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int m = 0; m < 8; ++m) C[at(r0 + m, c + n)] = acc[n][m];
+  }
+}
+
+// Write one 32 x 32 tile of the output (dst: its first entry): a tile of L
+// from shared memory, with zeros above the diagonal if it is a diagonal tile,
+// or, with src null, the constant fill. Rows 4 pass + lane / 8, columns
+// 4 q .. 4 q + 3: 8 lanes cover a row with 16-byte stores.
+__device__ __forceinline__ void store_tile(float* dst, int nb, const float* src, bool diag, float fill,
+                           int lane) {
+  const int q = lane % 8;
+#pragma unroll
+  for (int pass = 0; pass < 8; ++pass) {
+    const int r = 4 * pass + lane / 8;
+    float e[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = 4 * q + u;
+      e[u] = src == nullptr ? fill : (diag && c > r) ? 0.0f : src[at(r, c)];
+    }
+    *reinterpret_cast<float4*>(dst + (long long)r * nb + 4 * q) =
+        make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+chol_blocks_kernel(const float* __restrict__ A, float* __restrict__ out, int nb) {
+  extern __shared__ __align__(16) float tiles[];
+  const int nt = nb / kT;
+  float* invd = tiles + tri(nt) * kTile;  // 1 / L_kk's diagonal, panel k
+  int* failed = reinterpret_cast<int*>(invd + kT);
+  const long long base = (long long)blockIdx.x * nb * nb;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int q = lane % 8;  // loads as store_tile stores: 16-byte pieces along rows
+
+  // Load the lower tiles; the diagonal tiles' upper halves become 0.
+  for (int t = warp; t < tri(nt); t += kWarps) {
+    int i = 0;
+    while (tri(i + 1) <= t) ++i;
+    const int j = t - tri(i);
+    float* dst = tiles + t * kTile;
+#pragma unroll
+    for (int pass = 0; pass < 8; ++pass) {
+      const int r = 4 * pass + lane / 8;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(
+          A + base + (long long)(kT * i + r) * nb + kT * j + 4 * q));
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = 4 * q + u;
+        dst[at(r, c)] = (i == j && c > r) ? 0.0f : e[u];
+      }
+    }
+  }
+  if (threadIdx.x == 0) *failed = 0;
+  __syncthreads();
+  float* const lane_out = out + base;
+  auto out_tile = [&](int i, int j) { return lane_out + (long long)kT * i * nb + kT * j; };
+  // Warp 0 factors the diagonal tiles. Warp 4 shares its scheduler: with it
+  // it updates the next diagonal tile, half each, then stores the finished
+  // panel while warp 0 factors, and takes no part of the trailing update, so
+  // the diagonal chain runs at full issue rate. The other 6 warps take the
+  // trailing update's tiles in turn.
+  const bool chain = warp % 4 == 0;
+  const int updater = warp - 1 - (warp > 4);  // 0 .. 5 for the other warps
+  if (warp == 0) {
+    if (!factor_diag(tiles, invd, lane) && lane == 0) *failed = 1;
+  } else if (!chain) {  // the zero tiles above the diagonal, meanwhile
+    for (int t = updater; t < nt * nt; t += kWarps - 2) {
+      if (t / nt < t % nt) store_tile(out_tile(t / nt, t % nt), nb, nullptr, false, 0.0f, lane);
+    }
   }
   __syncthreads();
 
-  bool ok = true;
-  for (int j = 0; j < nb; ++j) {
-    // The pivot was last written before the barrier that ended column j-1, and
-    // is overwritten with its square root only after the next barrier, so every
-    // thread reads the same pivot here: the branch is uniform.
-    const float piv = a[tri(j) + j];
-    if (!(piv > 0.0f)) {
-      ok = false;
-      break;
-    }
-    const float d = sqrtf(piv);
-    for (int i = j + 1 + tid; i < nb; i += kThreads) {
-      const float v = a[tri(i) + j] / d;
-      a[tri(i) + j] = v;
-      col[i] = v;
-    }
+  // *failed is read right after a barrier and written only between the next
+  // two, so every thread sees the same value and leaves the loop together.
+  for (int k = 0; k < nt && !*failed; ++k) {
+    const float* Lkk = tile(tiles, k, k);
+    for (int i = k + 1 + warp; i < nt; i += kWarps) solve_panel(tile(tiles, i, k), Lkk, invd, lane);
     __syncthreads();
-    // the trailing update below touches columns > j only
-    if (tid == 0) a[tri(j) + j] = d;
-    for (int i = j + 1 + warp; i < nb; i += kWarps) {
-      const float ci = col[i];
-      float* row = a + tri(i);
-      for (int k = j + 1 + lane; k <= i; k += 32) row[k] -= ci * col[k];
+    if (k + 1 == nt) break;
+    if (chain) {
+      float* D = tile(tiles, k + 1, k + 1);
+      const float* Lk = tile(tiles, k + 1, k);
+      update_cols(D, Lk, Lk, 4 * warp, lane);
+      asm volatile("bar.sync 1, 64;" ::: "memory");  // warps 0 and 4
+      if (warp == 0) {
+        if (!factor_diag(D, invd, lane) && lane == 0) *failed = 1;
+      } else {  // panel k is final: store it
+        for (int i = k; i < nt; ++i)
+          store_tile(out_tile(i, k), nb, tile(tiles, i, k), i == k, 0.0f, lane);
+      }
+    } else {
+      // The other trailing tiles, rows k + 2 .. in pairs along the row (a
+      // lone last tile of a row alone), the pairs first, in turn.
+      int idx = 0;
+      for (int w = 2; w >= 1; --w) {
+        for (int i = k + 2; i < nt; ++i) {
+          for (int j = k + 1; j + w - 1 <= i; j += 2) {
+            if ((j + 1 <= i ? 2 : 1) != w || idx++ % (kWarps - 2) != updater) continue;
+            const float* A = tile(tiles, i, k);
+            if (w == 2) {
+              float* const C[2] = {tile(tiles, i, j), tile(tiles, i, j + 1)};
+              const float* const B[2] = {tile(tiles, j, k), tile(tiles, j + 1, k)};
+              update_tiles<2>(C, A, B, lane);
+            } else {
+              float* const C[1] = {tile(tiles, i, j)};
+              const float* const B[1] = {tile(tiles, j, k)};
+              update_tiles<1>(C, A, B, lane);
+            }
+          }
+        }
+      }
     }
     __syncthreads();
   }
 
-  const float nan = __int_as_float(0x7fc00000);
-  for (int i = warp; i < nb; i += kWarps) {
-    float* dst = out + base + (long long)i * nb;
-    for (int k = lane; k < nb; k += 32)
-      dst[k] = !ok ? nan : (k <= i ? a[tri(i) + k] : 0.0f);
+  // The last diagonal tile, or, for a lane that failed, NaN over every tile
+  // written so far (the barriers order those writes before these).
+  if (*failed) {
+    const float nan = __int_as_float(0x7fc00000);
+    for (int t = warp; t < nt * nt; t += kWarps)
+      store_tile(out_tile(t / nt, t % nt), nb, nullptr, false, nan, lane);
+  } else if (warp == 0) {
+    store_tile(out_tile(nt - 1, nt - 1), nb, tile(tiles, nt - 1, nt - 1), true, 0.0f, lane);
   }
+}
+
+// Dynamic shared memory of one launch: the lower triangle's tiles, the
+// panel's reciprocal pivots and the failure flag (up to nb = 320 on Hopper).
+size_t chol_smem(int nb) {
+  const size_t nt = nb / kT;
+  return sizeof(float) * (nt * (nt + 1) / 2 * kTile + kT + 1);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The wrapper (ops/cuda_linalg.py) checks that this shared-memory size fits.
+// Returns kSmemDoesNotFit, launching nothing, when the tiles of one lane do
+// not fit a block's shared memory.
 int gpo_cholesky_blocks(const float* A, float* out, int G, int nb, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)nb * (nb + 1) / 2 + nb);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        chol_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = chol_smem(nb);
+  const int err = opt_in_smem(chol_blocks_kernel, smem);
+  if (err != 0) return err;
   chol_blocks_kernel<<<G, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, out, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ..config import resolve_device
 from ..ops import cuda_kernels
 from .base import Kernel
 
@@ -59,7 +60,9 @@ class Stationary(Kernel):
     @classmethod
     def create(cls, input_dim, variance=1.0, lengthscale=None, ARD=False,
                active_dims=None, dtype=torch.float64, device=None, **extra):
-        """GPy-style constructor (stationary.py:61-83)."""
+        """GPy-style constructor (stationary.py:61-83); ``device`` None means
+        the card."""
+        device = resolve_device(device)
         if lengthscale is None:
             lengthscale = torch.ones((input_dim,) if ARD else (), dtype=dtype, device=device)
         else:

@@ -15,8 +15,9 @@ greedy ladder from ``jitter_hint``, the posterior re-verifies the minimal rung,
 and that rung is the next refit's hint. ``ladder`` records, per refit, the
 hint the fit started from and the posterior's rung.
 
-Tensors live on ``device`` in ``dtype``; fit restarts draw from ``generator``
-(a ``torch.Generator`` on that device, seeded from ``seed`` by default).
+Tensors live on ``device`` (the card unless another is named) in ``dtype``;
+fit restarts draw from ``generator`` (a ``torch.Generator`` on that device,
+seeded from ``seed`` by default).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, resolve_device
 from ..kernels.gower import Gower
 from ..kernels.stationary import Matern52
 from .fit import Fitter
@@ -53,7 +54,7 @@ class GPModel:
         self.ARD = ARD
         self.Gower = Gower
         self.space = space
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)

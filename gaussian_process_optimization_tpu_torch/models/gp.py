@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import config
+from ..config import config, resolve_device
 from ..kernels.base import Kernel
 from ..kernels.stationary import RBF
 from ..ops import linalg
@@ -151,7 +151,8 @@ class GPRegression:
                dtype=torch.float64, device=None) -> "GPRegression":
         """GPy-style constructor (gp.py:215-268): optional padding to
         ``max_points`` rows with a mask (always present when padding is asked
-        for). Homoscedastic noise only."""
+        for). Homoscedastic noise only. ``device`` None means the card."""
+        device = resolve_device(device)
         X = torch.as_tensor(np.asarray(X), dtype=dtype, device=device)
         X = X.reshape(1, -1) if X.ndim == 1 else X
         Y = torch.as_tensor(np.asarray(Y), dtype=dtype, device=device)

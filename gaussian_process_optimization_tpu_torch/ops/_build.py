@@ -7,8 +7,9 @@ interface, loaded with ``ctypes``. The library lands in
 rebuilds and an unchanged tree reuses the last build. Nothing is fetched:
 ``nvcc`` comes from ``$CUDA_HOME``, ``/usr/local/cuda`` or ``PATH``.
 
-Every entry point returns ``cudaGetLastError()`` after its launch; :func:`check`
-raises on a non-zero code.
+Every entry point returns ``cudaGetLastError()`` after its launch, or, having
+launched nothing, :data:`SMEM_DOES_NOT_FIT`; :func:`check` raises on a non-zero
+code.
 """
 from __future__ import annotations
 
@@ -37,6 +38,10 @@ _SIGNATURES = {
     "gpo_sum_partials": [_P, _P, _I, _I, _I, _P],
     "gpo_tri_inv_blocks": [_P, _P, _I, _I, _P],
 }
+
+# What an entry point returns when one thread block would need more shared
+# memory than the device lets it opt in to (``csrc/block_smem.cuh``).
+SMEM_DOES_NOT_FIT = -1
 
 _lib = None
 
@@ -108,5 +113,8 @@ def library() -> ctypes.CDLL:
 
 
 def check(code: int, what: str) -> None:
+    if code == SMEM_DOES_NOT_FIT:
+        raise ValueError(f"{what}: the block size needs more shared memory than a "
+                         "thread block can have on this device")
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")

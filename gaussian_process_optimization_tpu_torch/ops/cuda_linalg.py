@@ -6,19 +6,21 @@ Two kernels replace the JAX package's two Pallas kernels there (``_make_entry``
 
 - :func:`tri_inv_blocks` (``csrc/tri_inv.cu``) — the inverse of every
   ``(nb, nb)`` lower-triangular block of a ``(..., nb, nb)`` stack in one launch.
-  The TPU layout (whole lanes of blocks in VMEM) does not fit a Hopper block's
-  shared memory; each block owns one 32-column strip of one lane's inverse.
+  Each thread block owns one 32-column strip of one lane's inverse and walks it
+  in 32 x 32 tile rows (blocked forward substitution).
 - :func:`cholesky_blocks` (``csrc/chol_blocks.cu``) — the Cholesky factor of
-  every ``(nb, nb)`` block in one launch. One block owns one lane and factors
-  its packed lower triangle (128.5 KB at nb = 256) in shared memory. A lane
-  whose factorization meets a non-positive pivot comes out all NaN.
+  every ``(nb, nb)`` block in one launch. One thread block owns one lane and
+  factors its lower triangle, kept in shared memory as 32 x 32 tiles (144 KB at
+  nb = 256), panel by panel. A lane whose factorization meets a non-positive
+  pivot comes out all NaN.
 
 Routing is the reference's gate (``_make_entry``): square blocks, ``nb`` a
 multiple of 32, float32. A CUDA tensor that passes it launches the kernel or
-raises; anything else, and every CPU tensor, takes the plain version beside the
-kernel: a triangular solve against the identity, and ``cholesky_ex`` with the
-lanes it reports as failed set to NaN (the reference's fallback, XLA's Cholesky,
-returns NaN there).
+raises (a ``ValueError`` when its tiles do not fit a block's shared memory,
+which the kernel's C entry checks before it launches); anything else,
+and every CPU tensor, takes the plain version beside the kernel: a triangular
+solve against the identity, and ``cholesky_ex`` with the lanes it reports as
+failed set to NaN (the reference's fallback, XLA's Cholesky, returns NaN there).
 """
 from __future__ import annotations
 
@@ -27,8 +29,7 @@ import torch
 from ..config import kernels_enabled
 from . import _build
 
-_MB = 32  # strip width of the kernel; the gate's block multiple
-_MAX_SMEM = 227 * 1024
+_MB = 32  # tile edge of the kernels; the gate's block multiple
 
 
 def tri_inv_plain(L: torch.Tensor) -> torch.Tensor:
@@ -47,15 +48,20 @@ def _eligible(A: torch.Tensor) -> bool:
             and nb % _MB == 0 and nb >= _MB and A.dtype == torch.float32)
 
 
+def _flat(A: torch.Tensor, nb: int) -> torch.Tensor:
+    """``A`` as a contiguous (G, nb, nb) stack whose data start on 16 bytes,
+    as the kernels' vector loads need."""
+    flat = A.reshape(-1, nb, nb).contiguous()
+    return flat if flat.data_ptr() % 16 == 0 else flat.clone()
+
+
 def tri_inv_blocks(A: torch.Tensor) -> torch.Tensor:
     """Inverse of each lower-triangular ``(nb, nb)`` block of ``A (..., nb, nb)``.
     The strict upper triangle of the result is exactly zero."""
     if not (A.is_cuda and _eligible(A)):
         return tri_inv_plain(A)
     nb = A.shape[-1]
-    if nb * _MB * 4 > _MAX_SMEM:
-        raise ValueError(f"block size {nb} needs more shared memory than a block has")
-    flat = A.reshape(-1, nb, nb).contiguous()
+    flat = _flat(A, nb)
     out = torch.empty_like(flat)
     if flat.shape[0]:
         lib = _build.library()
@@ -69,10 +75,6 @@ def tri_inv_blocks(A: torch.Tensor) -> torch.Tensor:
 tri_inv_blocks.launches = 0
 
 
-def _chol_smem(nb: int) -> int:
-    return 4 * (nb * (nb + 1) // 2 + nb)  # packed lower triangle + one column
-
-
 def cholesky_blocks(A: torch.Tensor) -> torch.Tensor:
     """Cholesky factor of each symmetric positive-definite ``(nb, nb)`` block of
     ``A (..., nb, nb)``, lower, with an exactly zero strict upper triangle. A
@@ -80,9 +82,7 @@ def cholesky_blocks(A: torch.Tensor) -> torch.Tensor:
     if not (A.is_cuda and _eligible(A)):
         return cholesky_plain(A)
     nb = A.shape[-1]
-    if _chol_smem(nb) > _MAX_SMEM:
-        raise ValueError(f"block size {nb} needs more shared memory than a block has")
-    flat = A.reshape(-1, nb, nb).contiguous()
+    flat = _flat(A, nb)
     out = torch.empty_like(flat)
     if flat.shape[0]:
         lib = _build.library()

@@ -23,6 +23,7 @@ import torch
 
 from .bo.acquisitions import neg_ei
 from .bo.methods import BayesianOptimization
+from .config import resolve_device
 from .kernels.stationary import Matern52
 from .models.fit import Fitter
 from .models.gp import GPRegression, Posterior
@@ -55,6 +56,8 @@ def bench_data(n: int = N, d: int = D, seed: int = 0):
 
 
 def make_model(X, Y, dtype=torch.float32, device=None) -> GPRegression:
+    """The bench's padded ARD Matern52 GP; ``device`` None means the card."""
+    device = resolve_device(device)
     d = X.shape[1]
     return GPRegression.create(
         X, Y, kernel=Matern52.create(d, ARD=True, dtype=dtype, device=device),
@@ -123,11 +126,13 @@ def thesis_data(n: int = N, seed: int = 0):
 def thesis_bo(X, Y, restarts: int = FIT_RESTARTS, steps: int = FIT_STEPS,
               batch: int = THESIS_BATCH, device=None,
               dtype=torch.float64) -> BayesianOptimization:
-    """The bench's ask-tell optimizer (bench.py:198-203)."""
+    """The bench's ask-tell optimizer (bench.py:198-203); ``device`` None
+    means the card."""
     return BayesianOptimization(
         f=None, domain=THESIS_DOMAIN, X=X, Y=Y, Gower=True, acquisition_type="EI",
         evaluator_type="local_penalization", batch_size=batch, exact_feval=True, seed=0,
-        max_iters=steps, optimize_restarts=restarts, device=device, dtype=dtype)
+        max_iters=steps, optimize_restarts=restarts, device=resolve_device(device),
+        dtype=dtype)
 
 
 @dataclasses.dataclass

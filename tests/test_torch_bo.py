@@ -105,9 +105,11 @@ def _gp_pair(rng, n=12, max_points=16):
     jk = JGower.create(JMatern52.create(6, variance=1.0), RANGES, CONT, DISC, True)
     jm = jreplace(JGP.create(X, Y, kernel=jk, noise_var=0.3, max_points=max_points),
                   jitter_hint=jnp.asarray(2.0, jnp.float32), jitter_greedy=True)
-    tk = Gower.create(Matern52.create(6, variance=1.0), RANGES, CONT, DISC, True)
+    tk = Gower.create(Matern52.create(6, variance=1.0, device="cpu"), RANGES, CONT, DISC,
+                      True)
     tm = dataclasses.replace(
-        GPRegression.create(X, Y, kernel=tk, noise_var=0.3, max_points=max_points),
+        GPRegression.create(X, Y, kernel=tk, noise_var=0.3, max_points=max_points,
+                            device="cpu"),
         jitter_hint=torch.tensor(2.0, dtype=torch.float32), jitter_greedy=True)
     return X, Y, jm, tm
 
@@ -179,7 +181,7 @@ def test_gpmodel_update_matches_jax(monkeypatch):
 
     monkeypatch.setattr(Fitter, "draw_starts", lambda self, model, generator=None: _t(starts))
     tgm = GPModel(exact_feval=True, Gower=True, space=tspace, max_iters=8,
-                  optimize_restarts=3)
+                  optimize_restarts=3, device="cpu")
     tgm.updateModel(X, Y)
     base = tgm.model.kern.base
     np.testing.assert_allclose(float(base.variance), float(jfitted.kern.base.variance),
@@ -208,8 +210,8 @@ def lp_models():
     jgm.posterior = jreplace(jm, jitter_greedy=False).inference(precompute_inverse=True)
     jgm._fmin = None
 
-    tgm = GPModel(exact_feval=True, Gower=True, space=tspace, max_iters=0)
-    tm = convert.gp_from_leaves(_jleaves(jm), gower=GOWER)
+    tgm = GPModel(exact_feval=True, Gower=True, space=tspace, max_iters=0, device="cpu")
+    tm = convert.gp_from_leaves(_jleaves(jm), gower=GOWER, device="cpu")
     assert float(tm.jitter_hint) == float(jm.jitter_hint)
     tgm.model = dataclasses.replace(tm, jitter_greedy=True)
     tgm.posterior = tm.inference(precompute_inverse=True)
@@ -253,7 +255,7 @@ def test_thesis_batch_matches_jax():
               acquisition_type="EI", evaluator_type="local_penalization", batch_size=5,
               exact_feval=True, seed=0, max_iters=0)
     theirs = JBO(**kw).suggest_next_locations()
-    bo = workload.thesis_bo(X, Y, steps=0)
+    bo = workload.thesis_bo(X, Y, steps=0, device="cpu")
     ours = workload.thesis_iteration(bo).batch
     assert ours.shape == (5, 6)
     np.testing.assert_array_equal(ours[:, 4:], theirs[:, 4:])
@@ -276,7 +278,7 @@ def test_mixed_space_lp_batch_with_dedup():
     bo = BayesianOptimization(f=None, domain=domain, X=X, Y=balance(X), model_type="GP",
                               acquisition_type="EI", evaluator_type="local_penalization",
                               batch_size=3, Gower=True, exact_feval=False, noise_var=1e-4,
-                              de_duplication=True, seed=3)
+                              de_duplication=True, seed=3, device="cpu")
     batch = bo.suggest_next_locations()
     assert batch.shape == (3, 2)
     assert set(np.unique(batch[:, 1])).issubset({0.0, 1.0, 2.0, 3.0, 4.0})

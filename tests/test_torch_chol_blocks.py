@@ -45,10 +45,11 @@ def _t(a):
     return torch.tensor(np.asarray(a), dtype=torch.float64)
 
 
-@pytest.mark.parametrize("G,nb", [(1, 32), (5, 64), (3, 128)])
+@pytest.mark.parametrize("G,nb", [(1, 32), (5, 64), (2, 96), (3, 128)])
 def test_cholesky_plain_matches_pallas(G, nb, rng, pallas_chol):
     """B4's plain version (and the wrapper, which takes it on the CPU) against
-    the Pallas kernel in interpret mode, rtol 1e-10, upper triangle exactly 0."""
+    the Pallas kernel in interpret mode, rtol 1e-10, upper triangle exactly 0;
+    nb = 96 is three panels, not a power of two."""
     A = _spd(rng, G, nb)
     theirs = np.asarray(pli.cholesky_blocks(jnp.asarray(A)))
     old = tconfig.use_cuda_kernels

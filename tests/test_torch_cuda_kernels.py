@@ -91,30 +91,71 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda):
         ck.stationary_k_build(X[:, :, :0], Z[:, :, :0], p, "rbf", True)
 
 
-def _check_tri_inv(L, got):
+# B3 and B4 take any nb that is a multiple of 32; the paths run nb = 256 with
+# G = 80 and 16 (B3) and G = 5 and 1 (B4).
+BLOCK_SHAPES = [(G, nb) for G in (1, 3, 5, 16, 80) for nb in (32, 64, 128, 256)]
+CONDS = [1e5, 1e6, 1e7]
+
+
+def _gamma(n):
+    u = 2.0 ** -24
+    return n * u / (1 - n * u)
+
+
+def _spd_blocks(G, nb=256, seed=0, cond=None, dtype=torch.float32):
+    """SPD blocks made in float64: A A^T + nb I, or, given ``cond``, Q diag(lam)
+    Q^T with a random orthogonal Q and lam geometric from 1 down to 1 / cond."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    A = torch.randn(G, nb, nb, generator=gen, dtype=torch.float64)
+    if cond is None:
+        return (A @ A.mT + nb * torch.eye(nb, dtype=torch.float64)).to(dtype)
+    Q, _ = torch.linalg.qr(A)
+    lam = cond ** (-torch.arange(nb, dtype=torch.float64) / (nb - 1))
+    B = (Q * lam) @ Q.mT
+    return (0.5 * (B + B.mT)).to(dtype)
+
+
+def _tri_residual(L, X) -> float:
+    """max over entries of |L X - I| / (|L| |X|), in float64."""
+    Ld, Xd = L.double(), X.double()
+    R = (Ld @ Xd - torch.eye(L.shape[-1], dtype=torch.float64, device=L.device)).abs()
+    return float((R / (Ld.abs() @ Xd.abs()).clamp_min(1e-300)).max())
+
+
+def _check_tri_inv(L, got, close=True):
     """B3's output against its plain version (rtol 5e-4 of the entry plus the
-    block's max), an exact-zero upper triangle, and the componentwise residual
-    |L X - I| <= gamma_nb |L| |X| of float32 forward substitution."""
-    want = cl.tri_inv_plain(L).double()
-    err = (got.double() - want).abs()
-    scale = want.abs().amax(dim=(-2, -1), keepdim=True)
-    assert bool((err <= 5e-4 * (want.abs() + scale)).all()), float(err.max())
+    block's max, when ``close``; on ill-conditioned blocks the two may differ
+    by cond u and only the residuals are compared), an exact-zero upper
+    triangle, the componentwise residual |L X - I| <= gamma_nb |L| |X| of
+    float32 forward substitution, and two launches bitwise equal."""
+    want = cl.tri_inv_plain(L)
+    if close:
+        err = (got.double() - want.double()).abs()
+        scale = want.double().abs().amax(dim=(-2, -1), keepdim=True)
+        assert bool((err <= 5e-4 * (want.double().abs() + scale)).all()), float(err.max())
     assert bool((torch.triu(got, 1) == 0).all())
-    nb, u = L.shape[-1], 2.0 ** -24
-    Ld, Xd = L.double(), got.double()
-    R = (Ld @ Xd - torch.eye(nb, dtype=torch.float64, device=L.device)).abs()
-    ratio = float((R / (Ld.abs() @ Xd.abs()).clamp_min(1e-300)).max())
-    assert ratio <= nb * u / (1 - nb * u), ratio
+    limit = _gamma(L.shape[-1])
+    assert _tri_residual(L, got) <= limit, (_tri_residual(L, got), _tri_residual(L, want))
+    assert torch.equal(got, cl.tri_inv_blocks(L))
 
 
-@pytest.mark.parametrize("G", [16, 80])
-def test_tri_inv_blocks_match_plain(G, cuda):
-    """B3 against its plain version at nb = 256 on random well-conditioned blocks."""
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    A = torch.randn(G, 256, 256, generator=gen, dtype=torch.float64)
-    L = torch.linalg.cholesky(A @ A.mT + 256 * torch.eye(256, dtype=torch.float64))
-    L = L.float().to(cuda)
+@pytest.mark.parametrize("G,nb", BLOCK_SHAPES)
+def test_tri_inv_blocks_match_plain(G, nb, cuda):
+    """B3 against its plain version on random well-conditioned blocks."""
+    L = torch.linalg.cholesky(_spd_blocks(G, nb, dtype=torch.float64)).float().to(cuda)
     _check_tri_inv(L, cl.tri_inv_blocks(L))
+
+
+@pytest.mark.parametrize("cond", CONDS)
+def test_tri_inv_blocks_ill_conditioned(cond, cuda):
+    """B3 on triangular blocks with cond_2 = ``cond``: the float64 Cholesky
+    factors of blocks whose spectrum runs from 1 to cond^-2, rounded to
+    float32. The residual bound holds at any conditioning."""
+    A = _spd_blocks(5, 256, seed=3, cond=cond ** 2, dtype=torch.float64)
+    L = torch.linalg.cholesky(A).float().to(cuda)
+    s = torch.linalg.svdvals(L.double())
+    assert float((s[:, 0] / s[:, -1]).min()) > 0.1 * cond
+    _check_tri_inv(L, cl.tri_inv_blocks(L), close=False)
 
 
 def test_tri_inv_blocks_on_gp_cholesky_blocks(cuda):
@@ -153,12 +194,6 @@ def test_lml_gradient_f32_kernels_match_f64(cuda):
                                atol=2e-5 * float(g64.abs().max()))
 
 
-def _spd_blocks(G, nb=256, seed=0):
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    A = torch.randn(G, nb, nb, generator=gen, dtype=torch.float64)
-    return (A @ A.mT + nb * torch.eye(nb, dtype=torch.float64)).float()
-
-
 def _chol_backward_error(A, L) -> float:
     """max over entries of |L L^T - A| / (|L| |L^T|), in float64."""
     Ld, Ad = L.double(), A.double()
@@ -166,47 +201,84 @@ def _chol_backward_error(A, L) -> float:
     return float((R / (Ld.abs() @ Ld.abs().mT).clamp_min(1e-300)).max())
 
 
-@pytest.mark.parametrize("G", [1, 5])
-def test_cholesky_blocks_match_plain(G, cuda):
-    """B4 against its plain version at nb = 256 (rtol 1e-4 of the entry plus
-    its block's max), an exactly zero strict upper triangle, Cholesky's
-    componentwise backward error within gamma_257 of float32 (Higham, Thm
-    10.3), and two launches bitwise equal."""
-    A = _spd_blocks(G).to(cuda)
-    got = cl.cholesky_blocks(A)
-    want = cl.cholesky_plain(A).double()
-    err = (got.double() - want).abs()
-    scale = want.abs().amax(dim=(-2, -1), keepdim=True)
-    assert bool((err <= 1e-4 * (want.abs() + scale)).all()), float(err.max())
+def _check_chol(A, got, close=True):
+    """B4's output against its plain version (rtol 1e-4 of the entry plus its
+    block's max, when ``close``), an exactly zero strict upper triangle,
+    Cholesky's componentwise backward error within gamma_{nb+1} of float32
+    (Higham, Thm 10.3), and two launches bitwise equal."""
+    want = cl.cholesky_plain(A)
+    if close:
+        err = (got.double() - want.double()).abs()
+        scale = want.double().abs().amax(dim=(-2, -1), keepdim=True)
+        assert bool((err <= 1e-4 * (want.double().abs() + scale)).all()), float(err.max())
     assert bool((torch.triu(got, 1) == 0).all())
-    n1, u = 257, 2.0 ** -24
-    assert _chol_backward_error(A, got) <= n1 * u / (1 - n1 * u)
+    limit = _gamma(A.shape[-1] + 1)
+    assert _chol_backward_error(A, got) <= limit, (_chol_backward_error(A, got),
+                                                   _chol_backward_error(A, want))
     assert torch.equal(got, cl.cholesky_blocks(A))
+
+
+@pytest.mark.parametrize("G,nb", BLOCK_SHAPES)
+def test_cholesky_blocks_match_plain(G, nb, cuda):
+    """B4 against its plain version on random well-conditioned blocks."""
+    A = _spd_blocks(G, nb).to(cuda)
+    _check_chol(A, cl.cholesky_blocks(A))
+
+
+@pytest.mark.parametrize("cond", CONDS)
+def test_cholesky_blocks_ill_conditioned(cond, cuda):
+    """B4 on blocks with cond_2 = ``cond`` (a chosen spectrum): every lane
+    factors, within the backward-error bound, which holds at any
+    conditioning; the forward error against the plain version is cond u and
+    is not compared."""
+    A = _spd_blocks(5, 256, seed=4, cond=cond).to(cuda)
+    got = cl.cholesky_blocks(A)
+    assert bool(torch.isfinite(got).all())
+    _check_chol(A, got, close=False)
 
 
 def test_cholesky_blocks_repeated_launches_agree(cuda):
     """Two lanes per SM, launched 20 times: every launch bitwise equal to the
     first and within the backward-error bound. A read of a shared-memory entry
-    that another warp overwrites in the same column step would show here as a
+    that another warp overwrites in the same panel step would show here as a
     launch that differs."""
     G = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
     A = _spd_blocks(G, seed=2).to(cuda)
     first = cl.cholesky_blocks(A)
     for _ in range(19):
         assert torch.equal(cl.cholesky_blocks(A), first)
-    n1, u = 257, 2.0 ** -24
-    assert _chol_backward_error(A, first) <= n1 * u / (1 - n1 * u)
+    assert _chol_backward_error(A, first) <= _gamma(257)
 
 
 def test_cholesky_blocks_nan_stays_in_its_lane(cuda):
-    """A -I lane comes out all NaN; the other lanes equal the same lanes
-    factored alone, bit for bit."""
-    A = _spd_blocks(3, seed=1).to(cuda)
+    """A lane that is not positive definite comes out all NaN, and the lanes
+    beside it equal the same lanes factored alone, bit for bit: a -I lane
+    (fails at the first pivot) and a lane that fails at pivot 200, inside
+    panel 6 of 8, after the earlier panels' solves and updates."""
+    A = _spd_blocks(4, seed=1).to(cuda)
     A[1] = -torch.eye(256, device=cuda)
+    A[2, 200, 200] = -1.0
     got = cl.cholesky_blocks(A)
-    assert bool(torch.isnan(got[1]).all())
-    for g in (0, 2):
+    for g in (1, 2):
+        assert bool(torch.isnan(got[g]).all())
+    for g in (0, 3):
         assert torch.equal(got[g], cl.cholesky_blocks(A[g:g + 1].contiguous())[0])
+    assert torch.equal(got.view(torch.int32), cl.cholesky_blocks(A).view(torch.int32))
+
+
+def test_linalg_wrappers_raise_when_tiles_do_not_fit(cuda):
+    """A block size whose tiles exceed the 227 KB of shared memory a thread
+    block can have on an H100 raises in the wrapper and launches nothing; one
+    tile row less launches. B4 holds the lower triangle's 32 x 32 tiles (fits
+    up to nb = 320), B3 a 32-column strip and five tiles (up to nb = 1632)."""
+    before = cl.tri_inv_blocks.launches, cl.cholesky_blocks.launches
+    for fn, nb in ((cl.cholesky_blocks, 352), (cl.tri_inv_blocks, 1664)):
+        A = torch.eye(nb, device=cuda)[None]
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(A)
+        fn(A[:, 32:, 32:].contiguous())  # one tile row less fits and launches
+    assert (cl.tri_inv_blocks.launches, cl.cholesky_blocks.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
 
 
 def test_blocked_ladder_through_b4_matches_cholesky_ex(cuda):

@@ -32,7 +32,7 @@ def _leaves(jm):
 @pytest.fixture(scope="module")
 def entry_model():
     _, (u0, jm) = graft.entry()
-    return jm, convert.gp_from_leaves(_leaves(jm))
+    return jm, convert.gp_from_leaves(_leaves(jm), device="cpu")
 
 
 def test_convert_round_trip(entry_model):
@@ -43,7 +43,7 @@ def test_convert_round_trip(entry_model):
                           "X", "Y", "mask"]
     for k, v in leaves.items():
         np.testing.assert_array_equal(back[k], v)
-    again = convert.gp_from_leaves(back)
+    again = convert.gp_from_leaves(back, device="cpu")
     for (p1, a), (p2, b) in zip(convert.leaves_of(again).items(), back.items()):
         assert p1 == p2 and np.array_equal(a, b)
 
@@ -122,14 +122,14 @@ def _small_models(rng, normalizer=False, kernel="matern52"):
     Y = np.sin(2 * X[:, :1]) + 0.1 * rng.standard_normal((n, 1)) + 0.5
     if kernel == "ratquad":
         jk = jkern.RatQuad.create(d, variance=1.2, lengthscale=0.9, power=1.7)
-        tk = RatQuad.create(d, variance=1.2, lengthscale=0.9, power=1.7)
+        tk = RatQuad.create(d, variance=1.2, lengthscale=0.9, power=1.7, device="cpu")
     else:
         ls = np.array([0.8, 1.3, 0.6])
         jk = jkern.Matern52.create(d, variance=1.4, lengthscale=ls, ARD=True)
-        tk = Matern52.create(d, variance=1.4, lengthscale=ls, ARD=True)
+        tk = Matern52.create(d, variance=1.4, lengthscale=ls, ARD=True, device="cpu")
     jm = JGP.create(X, Y, kernel=jk, noise_var=0.02, max_points=48, normalizer=normalizer)
     tm = GPRegression.create(X, Y, kernel=tk, noise_var=0.02, max_points=48,
-                             normalizer=normalizer)
+                             normalizer=normalizer, device="cpu")
     return jm, tm
 
 

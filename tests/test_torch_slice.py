@@ -98,7 +98,7 @@ def _models(n, seed=0):
     X, Y = workload.bench_data(n=n, seed=seed)
     jm = JGP.create(X, Y, kernel=jkern.Matern52.create(6, ARD=True), noise_var=0.05,
                     max_points=n)
-    return jm, workload.make_model(X, Y, dtype=torch.float64)
+    return jm, workload.make_model(X, Y, dtype=torch.float64, device="cpu")
 
 
 def test_fitter_lanes_match_jax():

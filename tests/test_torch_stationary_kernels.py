@@ -44,10 +44,11 @@ def _kernels(cls_name, d, ard, jdtype, tdtype, variance=1.3, power=1.5):
     if cls_name == "RatQuad":
         jk = jcls.create(d, variance=variance, lengthscale=ls, power=power, ARD=ard)
         tk = tcls.create(d, variance=variance, lengthscale=ls, power=power, ARD=ard,
-                         dtype=tdtype)
+                         dtype=tdtype, device="cpu")
     else:
         jk = jcls.create(d, variance=variance, lengthscale=ls, ARD=ard)
-        tk = tcls.create(d, variance=variance, lengthscale=ls, ARD=ard, dtype=tdtype)
+        tk = tcls.create(d, variance=variance, lengthscale=ls, ARD=ard, dtype=tdtype,
+                         device="cpu")
     jk = jax.tree_util.tree_map(lambda x: jnp.asarray(x, dtype=jdtype), jk)
     return jk, tk
 
@@ -173,7 +174,7 @@ def test_gate_is_per_lane():
     old = tconfig.use_cuda_kernels
     tconfig.use_cuda_kernels = True
     try:
-        k = tkern.Matern52.create(6, ARD=True, dtype=torch.float32)
+        k = tkern.Matern52.create(6, ARD=True, dtype=torch.float32, device="cpu")
         X = torch.zeros(4096, 6)
         assert ck.supports(k, X, torch.zeros(1000, 6))
         assert ck.supports(k, X, None)
@@ -184,7 +185,7 @@ def test_gate_is_per_lane():
     finally:
         tconfig.use_cuda_kernels = old
     # 'auto' on the CPU: the plain path
-    assert not ck.supports(tkern.RBF.create(2, dtype=torch.float32),
+    assert not ck.supports(tkern.RBF.create(2, dtype=torch.float32, device="cpu"),
                            torch.zeros(300, 2), None)
 
 
