@@ -12,7 +12,10 @@ Phases, each printing its own lines:
   2. build    — compiles the CUDA kernels from ``csrc/`` (nvcc, sm_90a, one process
                 per source) and times it;
   3. kernels  — each kernel against its plain PyTorch version at its path's
-                shapes, with its time, the plain version's, the one PyTorch call
+                shapes (B1's K(X, X) also bitwise equal to its transpose; what the
+                model calls, ``stationary_K`` forward and backward, timed beside the
+                bare kernels and the symmetrization pass it no longer runs; B2's dZ
+                pass timed at the sweep shape), with its time, the plain version's, the one PyTorch call
                 that computes the same function where there is one (B3:
                 solve_triangular against I, B4: cholesky_ex) and the roofline
                 bound from the shapes (bytes at 3.35 TB/s or f32 flops at
@@ -48,6 +51,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -239,10 +243,29 @@ def phase_build():
     _build.library()
     seconds = time.perf_counter() - t0
     print(f"# build: {path.relative_to(ROOT)} in {seconds:.2f} s")
+    # nvcc's report: the kernels that spill (the chunked D > 8 instantiations
+    # do, around their out-of-line r^2) and the main path's kernels (B3, B4, and
+    # B1 / B2 for ARD Matern52 at D = 6)
     log = path.with_suffix(".log")
-    for line in log.read_text().splitlines() if log.exists() else []:
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"# ptxas: {line.strip()}")
+    lines = log.read_text().splitlines() if log.exists() else []
+    kernels = {}
+    for i, line in enumerate(lines):
+        if line.startswith("# ") and "compiled in" in line:
+            print(f"# build: {line[2:]}")
+        if "Compiling entry function" in line:
+            kernels[line.split("'")[1]] = " ".join(lines[i + 1:i + 4])
+    regs = [int(m.group(1)) for m in (re.search(r"Used (\d+) registers", v)
+                                      for v in kernels.values()) if m]
+    spilled = {k: v for k, v in kernels.items() if not re.search(r" 0 bytes spill stores", v)}
+    print(f"# ptxas: {len(kernels)} kernels, at most {max(regs, default=0)} registers, "
+          f"{len(spilled)} with spills")
+    for name, report in kernels.items():
+        if name in spilled or "stationary" not in name or "ILi4ELb1ELi6ELb0" in name:
+            used = re.search(r"Used .*", report)
+            spills = re.search(r"\d+ bytes stack frame.*spill loads", report)
+            print(f"# ptxas: {name[-60:]}: {used.group(0) if used else report}"
+                  + (f"; SPILLS: {spills.group(0) if spills else report}"
+                     if name in spilled else ""))
     return seconds
 
 
@@ -274,6 +297,11 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
         want = ck.k_build_plain(X, Z, p, "matern52", True)
         _close(f"B1 {tag}", got, want, rtol=2e-5, atol=2e-6)
         errs.append(_max_err(got, want))
+        if Z is X:
+            # what lets stationary_K return the kernel's output as it is
+            if not torch.equal(got, got.mT):
+                raise AssertionError("B1: K(X, X) is not bitwise symmetric")
+            print(f"# B1 {tag}: K(X, X) equals its transpose bit for bit")
         ms = _time_ms(lambda: ck.stationary_k_build(X, Z, p, "matern52", True))
         plain = _time_ms(lambda: ck.k_build_plain(X, Z, p, "matern52", True))
         inputs = (X, p) if Z is X else (X, Z, p)  # K(X, X) reads X once
@@ -319,6 +347,33 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
           f"({bound['bound_by']})")
     rows["B2"] = {"ms": ms, "plain_ms": plain, "library_ms": None, **bound,
                   "max_abs_err": max(errs)}
+    # the dZ pass (a thread owns columns and walks down rows) and the dX variant
+    # of the row pass, at the sweep shape
+    for name, flags in (("dZ", (False, True, False)), ("parameter gradients + dX",
+                                                       (True, False, True))):
+        ms = _time_ms(lambda: ck.stationary_k_backward(X, C, p1, Gs, "matern52", True, *flags))
+        print(f"# B2 stationary_k_backward {sweep_tag} ({name}): kernel {ms:.4f} ms")
+
+    # What the model calls: stationary_K(kern, X) with lane-batched
+    # hyperparameters, forward and backward through autograd, beside the
+    # (K + K^T) / 2 pass that used to follow the kernel.
+    from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52
+
+    var = p5[:, 0].clone().requires_grad_(True)
+    ls = p5[:, 2:8].clone().requires_grad_(True)
+    kern = Matern52(input_dim=6, variance=var, lengthscale=ls)
+
+    def forward_backward():
+        torch.autograd.grad(ck.stationary_K(kern, X[0]), (var, ls), G)
+
+    fwd = _time_ms(lambda: ck.stationary_K(kern, X[0]))
+    both = _time_ms(forward_backward)
+    K = ck.stationary_K(kern, X[0]).detach()
+    sym = _time_ms(lambda: 0.5 * (K + K.mT))
+    del K
+    print(f"# stationary_K(kern, X) {fit_tag}: forward {fwd:.4f} ms, forward + backward "
+          f"{both:.4f} ms (backward {both - fwd:.4f} ms); the pass it no longer runs, "
+          f"0.5 * (K + K^T), {sym:.4f} ms forward and as much again on G in the backward")
     del G, Gs
 
     # B3 and B4 on blocks of nb = 256, each beside the one PyTorch call that
@@ -376,7 +431,7 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
 
     # one full factorization, three ways, on the fit shape's Matern52 Gram
     K = ck.stationary_k_build(X, X, p5, "matern52", True)
-    Ky = 0.5 * (K + K.mT) + 0.05 * torch.eye(n, device=dev)
+    Ky = K + 0.05 * torch.eye(n, device=dev)
     del K
     old = config.cuda_chol_blocks
     times = {}

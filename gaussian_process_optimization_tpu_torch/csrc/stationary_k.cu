@@ -1,255 +1,234 @@
 // Stationary covariance K(X, Z) and its backward, lane-batched, for sm_90a.
 //
 // Replaces, in the JAX package, ops/pallas_kernels.py:
-//   * _pallas_K / _make_tile_kernel (forward, K build);
+//   * _pallas_K / _make_tile_kernel (forward, K build): k_build_kernel;
 //   * _pallas_K_bwd / _make_bwd_tile_kernel (backward: dX, dZ, dvariance,
-//     dlengthscale, dpower).
+//     dlengthscale, dpower): k_bwd_rows_kernel (parameter gradients and dX)
+//     and k_bwd_cols_kernel (dZ).
+// The kernels are templates in stationary_k_kernels.cuh, instantiated one
+// family per source (stationary_k_<family>.cu) so that nvcc builds the families
+// side by side; this file holds the entry points and the fixed-order sums.
 //
-// Forward bound: the store of B*N*M floats (335 MB for B=5, N=M=4096). The
-// arithmetic is O(D) per element, so the kernel is memory-bound. Each block
-// writes one 64x64 output tile of one lane; its X and Z rows are staged in
-// shared memory (Z transposed, so a warp reads consecutive words) and one warp
-// stores 32 consecutive floats of a row. The ragged edge is masked, not padded.
-// The distance uses explicit per-dimension differences (no -2 X Z^T cross
-// term), exactly as the TPU tile does, so plain f32 has no cancellation.
+// What bounds them on this card. The forward writes B*N*M floats and the
+// backward reads as many (335 MB at B=5, N=M=4096: 0.10 ms at 3.35 TB/s), and
+// the arithmetic is O(D) per entry, so the bound is bytes. But an entry costs
+// tens of instructions against 4 bytes, and a first version that spent 120
+// (forward) and 230 (backward) instructions per entry was bound by the
+// instruction rate at 6x and 16x the memory time. The design is about
+// instructions per entry:
+//   * The family, the ARD flag and the dimension bucket are template
+//     arguments: no switch per entry, every loop over dimensions unrolled, all
+//     per-dimension values in registers. The buckets are Dp = 4, 6 and 8
+//     dimensions held in registers, and chunks of 8 for 9 <= D <= 64. X and Z
+//     come padded with zeros to the bucket's width (the wrapper pads; D = 4, 6
+//     and 8 need none); padded dimensions get a zero inverse lengthscale,
+//     add exactly 0 and need no predicate. The chunked forward sums r^2 over
+//     the chunks; the chunked backward sweeps G once per chunk of lengthscale
+//     or coordinate gradients and recomputes r^2 over all chunks each time
+//     (right, and slow in proportion: the paths run D = 6).
+//   * One IEEE reciprocal per lengthscale per block, then u = (x - z) * inv_l
+//     per entry and dimension: <= 1.5 ulp from (x - z) / l. The difference is
+//     still taken first, as the TPU tile does, so there is no cancellation;
+//     the coordinates are never pre-scaled. Non-ARD multiplies the sum by
+//     inv_l^2 once. The backward's row pass goes one step further: it keeps
+//     d = x - z and q = d^2, forms r^2 = sum q inv_l^2, accumulates sum W q and
+//     sum W d with one FMA each and scales the sums once at the end.
+//   * The radial profile uses the one-instruction special functions and one
+//     exponential per entry (stationary_family.cuh states what each costs).
+//   * Register tiles. A thread owns 4 consecutive columns and 4 rows (forward:
+//     8 rows in two steps); a warp covers 128 consecutive columns of its rows.
+//     The thread's z values are read once per tile (16 bytes a load, through
+//     the read-only cache: X and Z are ~100 KB and stay in L1 / L2), its x
+//     values once per row step. Shared memory holds only the reciprocals and
+//     the final reductions.
+//   * K is stored, and G loaded, 16 bytes a thread with the streaming
+//     qualifier (.cs): each is 335 MB, touched once, and should not evict X
+//     and Z from L2. A row that is not 16-byte aligned, a G view whose last
+//     stride is not 1, and the ragged last columns take the scalar path. The
+//     backward loads the next tile's G before it works on this one's.
 //
-// Backward bound: the read of G, again B*N*M floats. The TPU kernel adds its
-// dX rows and scalar sums into its output across grid steps with `+=`, which
-// is right only because a TPU runs its grid in order. Here one block owns one
-// (lane, 32-row tile) and loops over every column chunk itself, so its dX rows
-// are summed inside the block; each thread keeps its own scalar partials, the
-// block reduces them in a fixed tree order and writes one row of a
-// (B, tiles, W) buffer, and gpo_sum_partials adds the tiles in order. No
-// atomics: two runs give the same bits.
+// K(X, X) is bitwise symmetric: (x_i - x_j) * c is the exact negative of
+// (x_j - x_i) * c, its square is the same number with or without FMA
+// contraction, the sum runs over the dimensions in the same order, and the
+// profile is a function of r^2 alone. So the wrapper needs no (K + K^T) / 2.
+//
+// Backward. The TPU kernel adds its dX rows and scalar sums into its output
+// across grid steps with `+=`, which is right only because a TPU runs its grid
+// in order. Here a block of k_bwd_rows_kernel owns a strip of rows of one lane
+// and sweeps every column itself; each thread keeps its sums (dl_0..dl_7,
+// dvariance, dpower, and its rows' dx when asked) in registers for the whole
+// sweep. They are reduced once at the end: a butterfly of warp shuffles, then
+// the 8 warps in order through shared memory, then one row of a (B, T, W)
+// buffer that gpo_sum_partials adds in order. Equal blocks finish in waves of
+// two per SM, so without dX the columns are also split between 1 to 4 blocks,
+// whichever count fills the last wave best (5 x 128 strips are 2.4 waves on
+// 132 SMs, two splits 4.85); T = strips x splits. k_bwd_cols_kernel turns the
+// roles for dZ: a thread owns 4 columns and walks down rows, so G is still read
+// along its rows and a column's sum needs no shuffle; the 8 warps of a block
+// and then the row strips are added in order. No atomics: two runs give the
+// same bits.
 //
 // Params row per lane: [variance, power, lengthscale_0 .. lengthscale_{n-1}]
 // padded to W >= 8 (n = D when ARD, else 1), as pallas_kernels._params_row.
 
 #include <cuda_runtime.h>
 
-#include "stationary_family.cuh"
+#include <cstdint>
+
+#include "stationary_k_kernels.cuh"
+
+namespace gpo {
+extern const FamilyKernels kernels_of_family_0, kernels_of_family_1, kernels_of_family_3,
+    kernels_of_family_4, kernels_of_family_5, kernels_of_family_6;
+}
+
+using namespace gpo;
 
 namespace {
 
-constexpr int kTile = 64;     // forward output tile edge
-constexpr int kFwdThreads = 256;
-constexpr int kBwdRows = 32;  // backward row tile
-constexpr int kBwdCols = 64;  // backward column chunk
-constexpr int kBwdThreads = 256;
-
-__global__ void stationary_k_kernel(const float* __restrict__ X, const float* __restrict__ Z,
-                                    const float* __restrict__ params, float* __restrict__ out,
-                                    int N, int M, int D, int W, long long sxb, long long szb,
-                                    int family, int ard) {
-  extern __shared__ float smem[];
-  float* ps = smem;                // W
-  float* xs = ps + W;              // kTile x D, row-major
-  float* zs = xs + kTile * D;      // D x kTile (transposed)
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
-  const float* Xb = X + b * sxb;
-  const float* Zb = Z + b * szb;
-  for (int e = threadIdx.x; e < W; e += blockDim.x) ps[e] = params[(long long)b * W + e];
-  for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
-    const int r = e / D, k = e % D;
-    xs[e] = (row0 + r < N) ? Xb[(long long)(row0 + r) * D + k] : 0.0f;
-    zs[k * kTile + r] = (col0 + r < M) ? Zb[(long long)(col0 + r) * D + k] : 0.0f;
-  }
-  __syncthreads();
-  const float variance = ps[0], power = ps[1];
-  const int c = threadIdx.x % kTile;
-  const int col = col0 + c;
-  for (int rr = threadIdx.x / kTile; rr < kTile; rr += kFwdThreads / kTile) {
-    const int row = row0 + rr;
-    float r2 = 0.0f;
-    for (int k = 0; k < D; ++k) {
-      float dx = xs[rr * D + k] - zs[k * kTile + c];
-      if (ard) dx = dx / ps[2 + k];
-      r2 += dx * dx;
-    }
-    if (!ard) r2 = r2 / (ps[2] * ps[2]);
-    const float r = sqrtf(fmaxf(r2, 0.0f));
-    if (row < N && col < M)
-      out[((long long)b * N + row) * M + col] = gpo::k_of_r(family, r, variance, power);
-  }
-}
-
-// One block per (32-row tile, lane). G is read through its strides, so the
-// dZ pass reads G^T without materializing it.
-__global__ void stationary_k_bwd_kernel(const float* __restrict__ X, const float* __restrict__ Z,
-                                        const float* __restrict__ params,
-                                        const float* __restrict__ G, float* __restrict__ dX,
-                                        float* __restrict__ partials, int N, int M, int D, int W,
-                                        long long sxb, long long szb, long long sgb,
-                                        long long sgn, long long sgm, int family, int ard,
-                                        int need_dx, int need_scalars) {
-  extern __shared__ float smem[];
-  float* ps = smem;                     // W
-  float* xs = ps + W;                   // kBwdRows x D
-  float* zs = xs + kBwdRows * D;        // D x kBwdCols
-  float* dxs = zs + D * kBwdCols;       // kBwdRows x D  (per-row dX sums)
-  float* dlt = dxs + kBwdRows * D;      // D x kBwdThreads (per-thread dl sums)
-  float* red = dlt + D * kBwdThreads;   // 2 x kBwdThreads
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int row0 = tile * kBwdRows;
-  const float* Xb = X + b * sxb;
-  const float* Zb = Z + b * szb;
-  const float* Gb = G + b * sgb;
-
-  for (int e = tid; e < W; e += blockDim.x) ps[e] = params[(long long)b * W + e];
-  for (int e = tid; e < kBwdRows * D; e += blockDim.x) {
-    const int r = e / D, k = e % D;
-    xs[e] = (row0 + r < N) ? Xb[(long long)(row0 + r) * D + k] : 0.0f;
-    dxs[e] = 0.0f;
-  }
-  for (int k = 0; k < D; ++k) dlt[k * kBwdThreads + tid] = 0.0f;
-  __syncthreads();
-
-  const float variance = ps[0], power = ps[1];
-  float dvar_acc = 0.0f, dpow_acc = 0.0f;
-  for (int col0 = 0; col0 < M; col0 += kBwdCols) {
-    for (int e = tid; e < kBwdCols * D; e += blockDim.x) {
-      const int c = e / D, k = e % D;
-      zs[k * kBwdCols + c] = (col0 + c < M) ? Zb[(long long)(col0 + c) * D + k] : 0.0f;
-    }
-    __syncthreads();
-    // warp w owns rows w, w+8, w+16, w+24; lane covers columns lane, lane+32
-    for (int rr = warp; rr < kBwdRows; rr += kBwdThreads / 32) {
-      const int row = row0 + rr;
-      if (row >= N) break;  // uniform across the warp
-      float Wv[2];
-      bool valid[2];
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        valid[h] = col0 + c < M;
-        Wv[h] = 0.0f;
-        if (!valid[h]) continue;
-        const float g = Gb[row * sgn + (long long)(col0 + c) * sgm];
-        float r2 = 0.0f;
-        for (int k = 0; k < D; ++k) {
-          const float ls = ard ? ps[2 + k] : ps[2];
-          const float u = (xs[rr * D + k] - zs[k * kBwdCols + c]) / ls;
-          r2 += u * u;
-        }
-        const float r = sqrtf(fmaxf(r2, 0.0f));
-        Wv[h] = g * gpo::k_dr_over_r(family, r, variance, power);
-        dvar_acc += g * gpo::k_of_r(family, r, 1.0f, power);
-        if (family == gpo::kRatquad)
-          dpow_acc += g * gpo::k_of_r(family, r, variance, power) * log1pf(0.5f * r2);
-      }
-      for (int k = 0; k < D; ++k) {
-        const float ls = ard ? ps[2 + k] : ps[2];
-        float s_dx = 0.0f;
-        for (int h = 0; h < 2; ++h) {
-          if (!valid[h]) continue;
-          const float u = (xs[rr * D + k] - zs[k * kBwdCols + lane + 32 * h]) / ls;
-          const float wu = Wv[h] * u;
-          s_dx += wu;
-          dlt[k * kBwdThreads + tid] += wu * u;
-        }
-        if (need_dx) {
-          for (int off = 16; off > 0; off >>= 1) s_dx += __shfl_xor_sync(0xffffffffu, s_dx, off);
-          if (lane == 0) dxs[rr * D + k] += s_dx;  // row rr belongs to this warp alone
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (need_dx) {
-    for (int e = tid; e < kBwdRows * D; e += blockDim.x) {
-      const int r = e / D, k = e % D;
-      const float ls = ard ? ps[2 + k] : ps[2];
-      if (row0 + r < N) dX[((long long)b * N + row0 + r) * D + k] = dxs[e] / ls;
-    }
-  }
-  if (!need_scalars) return;
-
-  // fixed-order tree reductions over the block's threads
-  red[tid] = dvar_acc;
-  red[kBwdThreads + tid] = dpow_acc;
-  __syncthreads();
-  for (int s = kBwdThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      red[tid] += red[tid + s];
-      red[kBwdThreads + tid] += red[kBwdThreads + tid + s];
-      for (int k = 0; k < D; ++k) dlt[k * kBwdThreads + tid] += dlt[k * kBwdThreads + tid + s];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    float* out = partials + ((long long)b * gridDim.x + tile) * W;
-    out[0] = red[0];
-    out[1] = family == gpo::kRatquad ? -red[kBwdThreads] : 0.0f;
-    float iso = 0.0f;
-    for (int k = 0; k < D; ++k) {
-      const float ls = ard ? ps[2 + k] : ps[2];
-      const float dl = -dlt[k * kBwdThreads] / ls;
-      if (ard) out[2 + k] = dl; else iso += dl;
-    }
-    int used = 2 + (ard ? D : 1);
-    if (!ard) out[2] = iso;
-    for (int e = used; e < W; ++e) out[e] = 0.0f;
-  }
-}
-
 // out[b, w] = sum over t of partials[b, t, w], t in increasing order.
 __global__ void sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                    int B, int T, int W) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+                                    int B, int T, long long W) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= B * W) return;
-  const int b = e / W, w = e % W;
+  const long long b = e / W, w = e % W;
   float s = 0.0f;
-  for (int t = 0; t < T; ++t) s += partials[((long long)b * T + t) * W + w];
+  for (int t = 0; t < T; ++t) s += partials[(b * T + t) * W + w];
   out[e] = s;
 }
 
-size_t bwd_smem_bytes(int D, int W) {
-  return sizeof(float) * (W + kBwdRows * D + D * kBwdCols + kBwdRows * D +
-                          D * kBwdThreads + 2 * kBwdThreads);
+// A family's kernels, or null; ou shares exponential's.
+const FamilyKernels* family_kernels(int family) {
+  switch (family) {
+    case kRbf: return &kernels_of_family_0;
+    case kExponential:
+    case kOu: return &kernels_of_family_1;
+    case kMatern32: return &kernels_of_family_3;
+    case kMatern52: return &kernels_of_family_4;
+    case kCosine: return &kernels_of_family_5;
+    case kRatquad: return &kernels_of_family_6;
+    default: return nullptr;
+  }
+}
+
+// The padded width the kernels take for D input dimensions (4, 6 or 8 for
+// D <= 8, else the next multiple of 8), or 0.
+int padded_width(int D) {
+  if (D < 1 || D > kMaxD) return 0;
+  if (D <= kChunk) return D <= 4 ? 4 : (D + 1) / 2 * 2;
+  return (D + kChunk - 1) / kChunk * kChunk;
+}
+
+// The bucket of the padded width Dp for D input dimensions, or -1 when Dp is
+// not that width.
+int bucket_of(int D, int Dp) {
+  if (Dp == 0 || Dp != padded_width(D)) return -1;
+  return Dp <= kChunk ? Dp / 2 - 2 : kBuckets - 1;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether G can be read 16 bytes at a time from any column that is a multiple of 4.
+int g_is_vector(const float* G, long long sgb, long long sgn, long long sgm) {
+  return sgm == 1 && sgn % 4 == 0 && sgb % 4 == 0 && aligned16(G);
+}
+
+// Column splits of the row pass: the count in 1..4 whose blocks fill whole
+// waves of two blocks per SM best. dX sums over all columns in one block.
+int column_splits(int B, int N, int M, int need_dx) {
+  if (need_dx) return 1;
+  int device = 0, sms = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const double slots = 2.0 * sms;
+  const long long strips = (long long)B * ((N + kBwdRowsParams - 1) / kBwdRowsParams);
+  const int col_tiles = (M + kCols - 1) / kCols;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= 4 && s <= col_tiles; ++s) {
+    const double waves = strips * s / slots;
+    const double fill = waves / (double)(long long)(waves + 0.999999);
+    if (fill > best_fill + 0.02) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
 }
 
 }  // namespace
 
 extern "C" {
 
-int gpo_bwd_row_tile() { return kBwdRows; }
+// The width X and Z are padded to for D input dimensions, 0 outside 1..64.
+int gpo_padded_width(int D) { return padded_width(D); }
 
-int gpo_stationary_k(const float* X, const float* Z, const float* params, float* out, int B,
-                     int N, int M, int D, int W, long long sxb, long long szb, int family,
-                     int ard, void* stream) {
-  const dim3 grid((M + kTile - 1) / kTile, (N + kTile - 1) / kTile, B);
-  const size_t smem = sizeof(float) * (W + 2 * kTile * D);
-  stationary_k_kernel<<<grid, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      X, Z, params, out, N, M, D, W, sxb, szb, family, ard);
+// Rows of `partials` per lane that the row pass writes for this shape.
+int gpo_bwd_partial_rows(int B, int N, int M, int need_dx) {
+  const int tile = need_dx ? kBwdRowsDx : kBwdRowsParams;
+  return (N + tile - 1) / tile * column_splits(B, N, M, need_dx);
+}
+
+// Rows of one strip of the dZ pass (the number of `scratch` strips is N over it).
+int gpo_bwd_col_strip() { return kColRows; }
+
+// X and Z padded to Dp = gpo_padded_width(D), 16-byte aligned.
+int gpo_stationary_k(const float* Xp, const float* Zp, const float* params, float* out, int B,
+                     int N, int M, int D, int Dp, int W, long long sxb, long long szb,
+                     int family, int ard, void* stream) {
+  const FamilyKernels* f = family_kernels(family);
+  const int bucket = bucket_of(D, Dp);
+  if (f == nullptr || bucket < 0 || !aligned16(Xp) || !aligned16(Zp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + kCols - 1) / kCols, (N + kFwdRows - 1) / kFwdRows, B);
+  f->build[ard != 0][bucket]<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      Xp, Zp, params, out, N, M, D, Dp, W, sxb, szb);
   return static_cast<int>(cudaGetLastError());
 }
 
-int gpo_stationary_k_bwd(const float* X, const float* Z, const float* params, const float* G,
-                         float* dX, float* partials, int B, int N, int M, int D, int W,
-                         long long sxb, long long szb, long long sgb, long long sgn,
-                         long long sgm, int family, int ard, int need_dx, int need_scalars,
-                         void* stream) {
-  const size_t smem = bwd_smem_bytes(D, W);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stationary_k_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((N + kBwdRows - 1) / kBwdRows, B);
-  stationary_k_bwd_kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      X, Z, params, G, dX, partials, N, M, D, W, sxb, szb, sgb, sgn, sgm, family, ard,
-      need_dx, need_scalars);
+// Parameter gradients into `partials` (B, gpo_bwd_partial_rows, W) unless it is
+// null, and dX (B, N, D) unless it is null.
+int gpo_stationary_k_bwd_rows(const float* Xp, const float* Zp, const float* params,
+                              const float* G, float* dX, float* partials, int B, int N, int M,
+                              int D, int Dp, int W, long long sxb, long long szb,
+                              long long sgb, long long sgn, long long sgm, int family, int ard,
+                              void* stream) {
+  const FamilyKernels* f = family_kernels(family);
+  const int bucket = bucket_of(D, Dp);
+  if (f == nullptr || bucket < 0 || !aligned16(Xp) || !aligned16(Zp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int need_dx = dX != nullptr;
+  const int tile = need_dx ? kBwdRowsDx : kBwdRowsParams;
+  const dim3 grid((N + tile - 1) / tile, B, column_splits(B, N, M, need_dx));
+  f->rows[ard != 0][bucket][need_dx]<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      Xp, Zp, params, G, dX, partials, N, M, D, Dp, W, sxb, szb, sgb, sgn, sgm,
+      g_is_vector(G, sgb, sgn, sgm));
   return static_cast<int>(cudaGetLastError());
 }
 
-int gpo_sum_partials(const float* partials, float* out, int B, int T, int W, void* stream) {
-  const int n = B * W;
-  sum_partials_kernel<<<(n + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      partials, out, B, T, W);
+// dZ pieces into `scratch` (B, strips, M, D), strips = ceil(N / gpo_bwd_col_strip()).
+int gpo_stationary_k_bwd_cols(const float* Xp, const float* Zp, const float* params,
+                              const float* G, float* scratch, int B, int N, int M, int D,
+                              int Dp, int W, long long sxb, long long szb, long long sgb,
+                              long long sgn, long long sgm, int family, int ard,
+                              void* stream) {
+  const FamilyKernels* f = family_kernels(family);
+  const int bucket = bucket_of(D, Dp);
+  if (f == nullptr || bucket < 0 || !aligned16(Xp) || !aligned16(Zp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + kCols - 1) / kCols, (N + kColRows - 1) / kColRows, B);
+  f->cols[ard != 0][bucket]<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      Xp, Zp, params, G, scratch, N, M, D, Dp, W, sxb, szb, sgb, sgn, sgm,
+      g_is_vector(G, sgb, sgn, sgm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (B, W) = the sum of partials (B, T, W) over T, in increasing order.
+int gpo_sum_partials(const float* partials, float* out, int B, int T, long long W,
+                     void* stream) {
+  const long long n = B * W;
+  sum_partials_kernel<<<static_cast<unsigned>((n + 127) / 128), 128, 0,
+                        static_cast<cudaStream_t>(stream)>>>(partials, out, B, T, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,3 @@
+// The matern52 family's K build and K backward kernels (stationary_k.cu has the design).
+#define GPO_FAMILY 4
+#include "stationary_k_kernels.cuh"

@@ -19,6 +19,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -29,13 +31,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argtypes; every function returns int (a cudaError_t)
+_K_COMMON = [_I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _I, _I, _P]
 _SIGNATURES = {
-    "gpo_bwd_row_tile": [],
+    "gpo_bwd_partial_rows": [_I, _I, _I, _I],
+    "gpo_bwd_col_strip": [],
+    "gpo_padded_width": [_I],
     "gpo_cholesky_blocks": [_P, _P, _I, _I, _P],
-    "gpo_stationary_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
-    "gpo_stationary_k_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
-                             _L, _L, _I, _I, _I, _I, _P],
-    "gpo_sum_partials": [_P, _P, _I, _I, _I, _P],
+    "gpo_stationary_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
+    "gpo_stationary_k_bwd_rows": [_P, _P, _P, _P, _P, _P, *_K_COMMON],
+    "gpo_stationary_k_bwd_cols": [_P, _P, _P, _P, _P, *_K_COMMON],
+    "gpo_sum_partials": [_P, _P, _I, _I, _L, _P],
     "gpo_tri_inv_blocks": [_P, _P, _I, _I, _P],
 }
 
@@ -79,13 +84,19 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(cu, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        failed = [(src.name, p.returncode, log)
-                  for src, p, log in zip(cu, procs, logs) if p.returncode != 0]
+
+        def compile_one(src, obj):
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return done, f"# {src.name}: compiled in {time.perf_counter() - t0:.2f} s\n"
+
+        with ThreadPoolExecutor(len(cu)) as pool:  # one nvcc per source, side by side
+            done = list(pool.map(compile_one, cu, objs))
+        logs = [took + d.stdout for d, took in done]
+        failed = [(src.name, d.returncode, d.stdout)
+                  for src, (d, _) in zip(cu, done) if d.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"{name} ({code}):\n{log}" for name, code, log in failed))

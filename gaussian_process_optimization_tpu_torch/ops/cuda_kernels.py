@@ -1,17 +1,24 @@
 """CUDA kernels for the covariance hot path (twin of ``gaussian_process_optimization_tpu/ops/pallas_kernels.py``).
 
-Two kernels, both in ``csrc/stationary_k.cu``:
+Two kernels, in ``csrc/stationary_k.cu`` (entry points and design note),
+``csrc/stationary_k_kernels.cuh`` (the templates) and one
+``csrc/stationary_k_<family>.cu`` per family (the instantiations):
 
 - :func:`stationary_k_build` (forward) — replaces the JAX package's
   ``pallas_kernels._pallas_K`` / ``_make_tile_kernel``. One launch writes the
   whole lane batch ``(B, N, M)``: the lane axis is a grid dimension, in place of
   the sequential grid dimension Pallas's vmap rule would add. Bound: storing
-  ``B*N*M`` floats (memory-bound); see the source note.
+  ``B*N*M`` floats; the design keeps the instructions per entry low enough to
+  come near it (see the source note).
 - :func:`stationary_k_backward` — replaces ``_pallas_K_bwd`` /
   ``_make_bwd_tile_kernel``. The TPU kernel's cross-grid-step ``+=`` is a race
-  on a GPU; the CUDA design loops over column tiles inside a block and sums the
-  per-block scalar partials in a second, fixed-order pass, so it is
-  deterministic.
+  on a GPU; here a block sweeps its rows' columns itself with every sum in
+  registers, a second kernel owns columns for dZ, and per-block partials are
+  summed in a second, fixed-order pass, so it is deterministic.
+
+The family, the ARD flag and the dimension bucket (4, 6 or 8 dimensions in
+registers, chunks of 8 above) pick a template instantiation; the wrappers pad
+``X`` and ``Z`` with zero columns to the bucket's width.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; a CPU tensor takes the plain PyTorch version beside it
@@ -195,8 +202,29 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _padded(T: torch.Tensor) -> torch.Tensor:
+    """``T`` (B, N, D) with zero columns appended up to the width the kernels
+    take (4, 6 or 8 for D <= 8, else the next multiple of 8), 16-byte aligned.
+    Padded dimensions add exactly 0 to r^2."""
+    extra = _build.library().gpo_padded_width(T.shape[-1]) - T.shape[-1]
+    if extra:
+        return torch.nn.functional.pad(T, (0, extra))
+    return T if T.data_ptr() % 16 == 0 else T.clone()
+
+
+def _padded_pair(X, Z):
+    Xp = _padded(X)
+    same = Z is X or (Z.data_ptr() == X.data_ptr() and Z.shape == X.shape)
+    return Xp, (Xp if same else _padded(Z))
+
+
+def _lane_stride(T) -> int:
+    return T.shape[1] * T.shape[2] if T.shape[0] > 1 else 0
+
+
 def stationary_k_build(X, Z, params, family: str, ard: bool) -> torch.Tensor:
-    """K (B, N, M); kernel on CUDA, plain version on the CPU."""
+    """K (B, N, M); kernel on CUDA, plain version on the CPU. K(X, X) comes out
+    bitwise symmetric from either."""
     if not X.is_cuda:
         return k_build_plain(X, Z, params, family, ard)
     _check_inputs(X, Z, params)
@@ -207,11 +235,11 @@ def stationary_k_build(X, Z, params, family: str, ard: bool) -> torch.Tensor:
     out = torch.empty(B, N, M, dtype=X.dtype, device=X.device)
     if out.numel():
         lib = _build.library()
+        Xp, Zp = _padded_pair(X, Z)
         _build.check(lib.gpo_stationary_k(
-            X.data_ptr(), Z.data_ptr(), params.data_ptr(), out.data_ptr(), B, N, M, D,
-            params.shape[1], N * D if X.shape[0] > 1 else 0,
-            M * D if Z.shape[0] > 1 else 0, FAMILIES.index(family), int(ard),
-            _stream()), "stationary_k_build")
+            Xp.data_ptr(), Zp.data_ptr(), params.data_ptr(), out.data_ptr(), B, N, M, D,
+            Xp.shape[-1], params.shape[1], _lane_stride(Xp), _lane_stride(Zp),
+            FAMILIES.index(family), int(ard), _stream()), "stationary_k_build")
         stationary_k_build.launches += 1
     return out
 
@@ -219,26 +247,13 @@ def stationary_k_build(X, Z, params, family: str, ard: bool) -> torch.Tensor:
 stationary_k_build.launches = 0
 
 
-def _bwd_launch(lib, A, Bm, params, G, strides, family, ard, dA, partials):
-    B = params.shape[0]
-    N, D = A.shape[1:]
-    M = Bm.shape[1]
-    _build.check(lib.gpo_stationary_k_bwd(
-        A.data_ptr(), Bm.data_ptr(), params.data_ptr(), G.data_ptr(),
-        dA.data_ptr() if dA is not None else None,
-        partials.data_ptr() if partials is not None else None,
-        B, N, M, D, params.shape[1], N * D if A.shape[0] > 1 else 0,
-        M * D if Bm.shape[0] > 1 else 0, *strides, FAMILIES.index(family), int(ard),
-        int(dA is not None), int(partials is not None), _stream()),
-        "stationary_k_backward")
-    stationary_k_backward.launches += 1
-
-
 def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
                           need_dz=True, need_params=True):
     """(dparams (B, W), dX (B, N, D), dZ (B, M, D)) given G = dL/dK (B, N, M);
-    kernel on CUDA, plain version on the CPU. G may be any strided view: the
-    dZ pass reads it transposed through its strides."""
+    kernel on CUDA, plain version on the CPU. One launch sweeps G by row strips
+    for the parameter gradients and dX, a second by column strips for dZ. G may
+    be any strided view (16 bytes a load when its last stride is 1 and its rows
+    are 16-byte aligned, 4 bytes otherwise); it is never copied."""
     if not X.is_cuda:
         return k_backward_plain(X, Z, params, G, family, ard, need_dx, need_dz,
                                 need_params)
@@ -254,21 +269,37 @@ def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
     if G.shape[0] == 1:
         sgb = 0
     lib = _build.library()
+    Xp, Zp = _padded_pair(X, Z)
+    common = (B, N, M, D, Xp.shape[-1], W, _lane_stride(Xp), _lane_stride(Zp), sgb, sgn,
+              sgm, FAMILIES.index(family), int(ard), _stream())
     dparams = dX = dZ = None
     new = dict(dtype=X.dtype, device=X.device)
     if need_params or need_dx:
-        tiles = -(-N // lib.gpo_bwd_row_tile())
+        tiles = lib.gpo_bwd_partial_rows(B, N, M, int(need_dx))
         partials = torch.empty(B, tiles, W, **new) if need_params else None
         dX = torch.empty(B, N, D, **new) if need_dx else None
-        _bwd_launch(lib, X, Z, params, G, (sgb, sgn, sgm), family, ard, dX, partials)
+        _build.check(lib.gpo_stationary_k_bwd_rows(
+            Xp.data_ptr(), Zp.data_ptr(), params.data_ptr(), G.data_ptr(),
+            dX.data_ptr() if need_dx else None,
+            partials.data_ptr() if need_params else None, *common),
+            "stationary_k_backward (row pass)")
+        stationary_k_backward.launches += 1
         if need_params:
             dparams = torch.empty(B, W, **new)
             _build.check(lib.gpo_sum_partials(partials.data_ptr(), dparams.data_ptr(),
                                               B, tiles, W, _stream()),
                          "stationary_k_backward (partial sums)")
     if need_dz:
+        strips = -(-N // lib.gpo_bwd_col_strip())
+        scratch = torch.empty(B, strips, M, D, **new)
+        _build.check(lib.gpo_stationary_k_bwd_cols(
+            Xp.data_ptr(), Zp.data_ptr(), params.data_ptr(), G.data_ptr(),
+            scratch.data_ptr(), *common), "stationary_k_backward (column pass)")
+        stationary_k_backward.launches += 1
         dZ = torch.empty(B, M, D, **new)
-        _bwd_launch(lib, Z, X, params, G, (sgb, sgm, sgn), family, ard, dZ, None)
+        _build.check(lib.gpo_sum_partials(scratch.data_ptr(), dZ.data_ptr(), B, strips,
+                                          M * D, _stream()),
+                     "stationary_k_backward (strip sums)")
     return dparams, dX, dZ
 
 
@@ -305,7 +336,12 @@ class StationaryK(torch.autograd.Function):
 def stationary_K(kern, X, X2=None) -> torch.Tensor:
     """Kernel-routed K (``pallas_kernels.stationary_K``). ``X`` / ``X2`` are
     ``(N, D)`` or lane-batched ``(B, N, D)``; the lanes of ``kern`` come from
-    its variance's shape. The symmetric case returns (K + K^T)/2."""
+    its variance's shape. The reference returns ``(K + K^T) / 2`` in the
+    symmetric case; here K(X, X) is bitwise symmetric as computed (by the
+    kernel and by the plain version: ``(x_i - x_j) c`` is the exact negative of
+    ``(x_j - x_i) c``, and the sum over dimensions runs in one order), so that
+    pass would return K itself and is not run, nor is its mirror on the way
+    back."""
     d = X.shape[-1]
     ard = kern.is_ard
     Z = X if X2 is None else X2
@@ -315,8 +351,4 @@ def stationary_K(kern, X, X2=None) -> torch.Tensor:
     X3 = X.reshape((-1,) + tuple(X.shape[-2:])).contiguous()
     Z3 = X3 if X2 is None else Z.reshape((-1,) + tuple(Z.shape[-2:])).contiguous()
     K = StationaryK.apply(X3, Z3, params.contiguous(), kern._family, ard)
-    K = K.reshape(tuple(batch) + tuple(K.shape[-2:]))
-    if X2 is None:
-        # exact symmetry and exact-zero diagonal distances, as the plain path
-        K = 0.5 * (K + K.transpose(-1, -2))
-    return K
+    return K.reshape(tuple(batch) + tuple(K.shape[-2:]))

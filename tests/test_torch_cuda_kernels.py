@@ -35,25 +35,120 @@ def _inputs(dev, n=300, m=170, d=6):
     return X, Z, G
 
 
-@pytest.mark.parametrize("ard", [False, True])
-@pytest.mark.parametrize("fam", FAMILIES)
-def test_k_build_and_backward_match_plain(fam, ard, cuda):
-    """B1 and B2 against their plain versions (f64 for the backward), with
-    the backward bitwise deterministic across runs."""
-    X, Z, G = _inputs(cuda)
-    params = torch.tensor([[1.3, 1.5, 0.7, 1.4, 0.9, 1.1, 0.8, 1.2],
-                           [0.6, 2.5, 1.0, 0.5, 1.5, 0.9, 1.3, 0.7]], device=cuda)
-    K = ck.stationary_k_build(X, Z, params, fam, ard)
-    torch.testing.assert_close(K, ck.k_build_plain(X, Z, params, fam, ard),
-                               rtol=2e-5, atol=2e-6)
+def _params(dev, lanes, d, seed=1):
+    """(lanes, max(2 + d, 8)) rows [variance, power, lengthscale x d]; the
+    lengthscales grow with sqrt(d) so that r stays of order 1 at any width."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    var = 0.5 + torch.rand(lanes, 1, generator=gen)
+    power = 0.5 + 2.0 * torch.rand(lanes, 1, generator=gen)
+    ls = (0.5 + torch.rand(lanes, d, generator=gen)) * (d ** 0.5)
+    row = torch.cat([var, power, ls], dim=1)
+    return torch.nn.functional.pad(row, (0, max(8 - row.shape[1], 0))).to(dev)
+
+
+def _check_backward(X, Z, params, G, fam, ard):
+    """B2 against the float64 plain version (rtol 1e-4 of the entry plus 1e-4
+    of the output's max: sums of ~n m terms of both signs), two launches
+    bitwise equal."""
     got = ck.stationary_k_backward(X, Z, params, G, fam, ard)
     again = ck.stationary_k_backward(X, Z, params, G, fam, ard)
     want = ck.k_backward_plain(X.double(), Z.double(), params.double(), G.double(),
                                fam, ard)
-    for a, b, w in zip(got, again, want):
+    for name, a, b, w in zip(("dparams", "dX", "dZ"), got, again, want):
+        assert torch.equal(a, b), name
+        torch.testing.assert_close(a.double(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()),
+                                   msg=lambda m: f"{name}: {m}")
+    return got
+
+
+# D = 1..8 is the one-chunk instantiation, 9..64 the chunked one
+@pytest.mark.parametrize("d", [1, 3, 6, 8, 9, 33, 64])
+@pytest.mark.parametrize("ard", [False, True])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_k_build_and_backward_match_plain(fam, ard, d, cuda):
+    """Every (family, ARD, dimension bucket) instantiation of B1 and B2
+    against the plain versions (f64 for the backward: parameter gradients from
+    the row pass, dX from its dX variant, dZ from the column pass), at a shape
+    ragged in both directions, with the backward bitwise deterministic."""
+    X, Z, G = _inputs(cuda, d=d)
+    params = _params(cuda, 2, d)
+    K = ck.stationary_k_build(X, Z, params, fam, ard)
+    torch.testing.assert_close(K, ck.k_build_plain(X, Z, params, fam, ard),
+                               rtol=2e-5, atol=2e-6)
+    _check_backward(X, Z, params, G, fam, ard)
+    # parameter gradients alone take the wider row strip
+    dp, _, _ = ck.stationary_k_backward(X, Z, params, G, fam, ard, False, False, True)
+    want, _, _ = ck.k_backward_plain(X.double(), Z.double(), params.double(), G.double(),
+                                     fam, ard, False, False, True)
+    torch.testing.assert_close(dp.double(), want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("d", [6, 33])
+@pytest.mark.parametrize("ard", [False, True])
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_k_build_symmetric_is_bitwise_symmetric(fam, ard, d, cuda):
+    """K(X, X) from B1 equals its transpose bit for bit (what lets
+    stationary_K skip the (K + K^T) / 2 pass), with an exact variance diagonal."""
+    X, _, _ = _inputs(cuda, n=517, d=d)
+    params = _params(cuda, 2, d)
+    K = ck.stationary_k_build(X, X, params, fam, ard)
+    assert torch.equal(K, K.mT)
+    torch.testing.assert_close(torch.diagonal(K, dim1=-2, dim2=-1),
+                               params[:, :1].expand(2, 517), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,m", [(130, 1000), (257, 129), (33, 7), (128, 1001), (5, 643)])
+def test_ragged_shapes(n, m, cuda):
+    """N and M off the tiles' multiples and off multiples of 4 (the scalar
+    store and load tails), and the sweep's M = 1000."""
+    X, Z, G = _inputs(cuda, n=n, m=m)
+    params = _params(cuda, 2, 6)
+    K = ck.stationary_k_build(X, Z, params, "matern52", True)
+    torch.testing.assert_close(K, ck.k_build_plain(X, Z, params, "matern52", True),
+                               rtol=2e-5, atol=2e-6)
+    _check_backward(X, Z, params, G, "matern52", True)
+
+
+@pytest.mark.parametrize("view", ["transposed", "misaligned_rows", "offset_base"])
+def test_backward_reads_strided_g(view, cuda):
+    """G views the 16-byte path cannot take (last stride != 1; rows or base off
+    16 bytes) go through the scalar loads and give the same gradients as a
+    contiguous copy, bit for bit (the loads differ, the arithmetic does not)."""
+    X, Z, _ = _inputs(cuda, n=260, m=172)
+    params = _params(cuda, 2, 6)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    if view == "transposed":
+        G = torch.randn(2, 172, 260, generator=gen).to(cuda).mT
+    elif view == "misaligned_rows":
+        G = torch.randn(2, 260, 175, generator=gen).to(cuda)[:, :, :172]
+    else:
+        G = torch.randn(2, 260, 176, generator=gen).to(cuda)[:, :, 1:173]
+    assert not G.is_contiguous()
+    got = _check_backward(X, Z, params, G, "matern52", True)
+    for a, b in zip(got, ck.stationary_k_backward(X, Z, params, G.contiguous(),
+                                                   "matern52", True)):
         assert torch.equal(a, b)
-        torch.testing.assert_close(a.double(), w, rtol=1e-4,
-                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("bx,bz,bp", [(1, 1, 3), (3, 1, 3), (1, 3, 1), (3, 3, 1), (3, 3, 3)])
+def test_lane_broadcasting(bx, bz, bp, cuda):
+    """Each of X, Z and params has 1 lane (shared) or B = 3; the kernels equal
+    the plain versions on the expanded inputs."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    X = (torch.rand(bx, 150, 6, generator=gen) * 4 - 2).to(cuda)
+    Z = (torch.rand(bz, 140, 6, generator=gen) * 4 - 2).to(cuda)
+    G = torch.randn(3, 150, 140, generator=gen).to(cuda)
+    params = _params(cuda, bp, 6)
+    Xe, Ze, pe = X.expand(3, -1, -1), Z.expand(3, -1, -1), params.expand(3, -1)
+    K = ck.stationary_k_build(X, Z, params, "ratquad", True)
+    torch.testing.assert_close(K, ck.k_build_plain(Xe, Ze, pe, "ratquad", True),
+                               rtol=2e-5, atol=2e-6)
+    got = ck.stationary_k_backward(X, Z, params, G, "ratquad", True)
+    want = ck.k_backward_plain(Xe.double(), Ze.double(), pe.double(), G.double(),
+                               "ratquad", True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.double(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
 
 
 def test_autograd_function_matches_cpu(cuda):

@@ -94,24 +94,59 @@ def test_K_and_Kdiag_match_jax_f64(fam, cls_name, ard, rng):
 
 
 def _torch_grads(tk, X, Z, G, fwd):
-    """(dvariance, dlengthscale, dpower, dX, dZ) of sum(K * G) with K = fwd(...)."""
+    """(dvariance, dlengthscale, dpower, dX, dZ) of sum(K * G) with K = fwd(...);
+    ``Z`` None leaves dZ out and hands ``fwd`` None."""
     leaves = {"variance": tk.variance.clone().requires_grad_(True),
               "lengthscale": tk.lengthscale.clone().requires_grad_(True)}
     if getattr(tk, "power", None) is not None:
         leaves["power"] = tk.power.clone().requires_grad_(True)
     k = dataclasses.replace(tk, **leaves)
     Xt = _t(X).requires_grad_(True)
-    Zt = _t(Z).requires_grad_(True)
+    Zt = None if Z is None else _t(Z).requires_grad_(True)
     loss = torch.sum(fwd(k, Xt, Zt) * _t(G))
-    grads = torch.autograd.grad(loss, list(leaves.values()) + [Xt, Zt])
-    out = dict(zip(list(leaves) + ["X", "Z"], [g.numpy() for g in grads]))
-    return out
+    points = {"X": Xt} if Z is None else {"X": Xt, "Z": Zt}
+    grads = torch.autograd.grad(loss, list(leaves.values()) + list(points.values()))
+    return dict(zip(list(leaves) + list(points), [g.numpy() for g in grads]))
 
 
 def _plain_fwd(k, X, Z):
     ard = k.is_ard
     params = ck.params_rows(k, X.shape[-1], ard)
     return ck.k_build_plain(X[None], Z[None], params, k._family, ard)[0]
+
+
+def _check_grads_against_jax(fam, cls_name, ard, X, Z, G):
+    """Gradients of sum(K * G) through the port's stationary_K against jax.grad
+    through the Pallas path in interpret mode, and against torch autograd
+    through the plain forward (tolerances of test_pallas_kernels.py). ``Z`` None
+    is the symmetric case K(X); there autograd through the plain forward's
+    sqrt is undefined on the diagonal (r = 0) and only jax.grad is the reference."""
+    jk, tk = _kernels(cls_name, X.shape[1], ard, jnp.float32, torch.float32)
+    if Z is None:
+        def loss(kk, Xv):
+            return jnp.sum(pk.stationary_K(kk, Xv, None) * G)
+
+        gk, gX = jax.grad(loss, argnums=(0, 1))(jk, jnp.asarray(X))
+        ours = _torch_grads(tk, X, None, G, ck.stationary_K)
+        auto = None
+        ref = {"X": gX}
+    else:
+        def loss(kk, Xv, Zv):
+            return jnp.sum(pk.stationary_K(kk, Xv, Zv) * G)
+
+        gk, gX, gZ = jax.grad(loss, argnums=(0, 1, 2))(jk, jnp.asarray(X), jnp.asarray(Z))
+        ours = _torch_grads(tk, X, Z, G, ck.stationary_K)
+        auto = _torch_grads(tk, X, Z, G, _plain_fwd)
+        ref = {"X": gX, "Z": gZ}
+    ref.update(variance=gk.variance, lengthscale=gk.lengthscale)
+    if fam == "ratquad":
+        ref["power"] = gk.power
+    for name, want in ref.items():
+        np.testing.assert_allclose(ours[name], np.asarray(want), rtol=3e-4, atol=3e-4,
+                                   err_msg=name)
+        if auto is not None:
+            np.testing.assert_allclose(ours[name], auto[name], rtol=3e-4, atol=3e-4,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("fam,cls_name,ard", CASES, ids=IDS)
@@ -123,22 +158,38 @@ def test_k_backward_plain_matches_jax_grad(fam, cls_name, ard, rng, interpret_mo
     X = rng.uniform(-2, 2, size=(40, d)).astype(np.float32)
     Z = rng.uniform(-2, 2, size=(25, d)).astype(np.float32)
     G = rng.standard_normal((40, 25)).astype(np.float32)
-    jk, tk = _kernels(cls_name, d, ard, jnp.float32, torch.float32)
+    _check_grads_against_jax(fam, cls_name, ard, X, Z, G)
 
-    def loss(kk, Xv, Zv):
-        return jnp.sum(pk.stationary_K(kk, Xv, Zv) * G)
 
-    gk, gX, gZ = jax.grad(loss, argnums=(0, 1, 2))(jk, jnp.asarray(X), jnp.asarray(Z))
-    ours = _torch_grads(tk, X, Z, G, ck.stationary_K)
-    auto = _torch_grads(tk, X, Z, G, _plain_fwd)
-    ref = {"variance": gk.variance, "lengthscale": gk.lengthscale, "X": gX, "Z": gZ}
-    if fam == "ratquad":
-        ref["power"] = gk.power
-    for name, want in ref.items():
-        np.testing.assert_allclose(ours[name], np.asarray(want), rtol=3e-4, atol=3e-4,
-                                   err_msg=name)
-        np.testing.assert_allclose(ours[name], auto[name], rtol=3e-4, atol=3e-4,
-                                   err_msg=name)
+@pytest.mark.parametrize("fam,cls_name,ard", CASES, ids=IDS)
+def test_symmetric_K_gradient_with_nonsymmetric_G_matches_jax(fam, cls_name, ard, rng,
+                                                              interpret_mode):
+    """K(X) hands its upstream gradient to B2 as it is, where the reference
+    routes it through (K + K^T) / 2: with a deliberately non-symmetric G the
+    gradients (parameters, and X through both of its roles) still match
+    jax.grad, so the dropped mirror pass changes nothing."""
+    d = 3
+    X = rng.uniform(-2, 2, size=(40, d)).astype(np.float32)
+    G = rng.standard_normal((40, 40)).astype(np.float32)
+    assert np.abs(G - G.T).max() > 1.0
+    _check_grads_against_jax(fam, cls_name, ard, X, None, G)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("fam,cls_name,ard", CASES, ids=IDS)
+def test_k_build_plain_is_bitwise_symmetric(fam, cls_name, ard, dtype, rng):
+    """k_build_plain(X, X) equals its transpose bit for bit, with the variance
+    exactly on the diagonal: what lets stationary_K skip (K + K^T) / 2. The
+    CUDA kernel is held to the same in tests/test_torch_cuda_kernels.py."""
+    d = 4
+    X = torch.tensor(rng.uniform(-3, 3, size=(1, 90, d)), dtype=dtype)
+    _, tk = _kernels(cls_name, d, ard, jnp.float32, dtype)
+    params = ck.params_rows(tk, d, ard)
+    K = ck.k_build_plain(X, X, params, fam, ard)
+    assert torch.equal(K, K.mT)
+    assert torch.equal(torch.diagonal(K[0]), params[0, 0].expand(90))
+    # the routed entry returns exactly this matrix
+    assert torch.equal(ck.stationary_K(tk, X[0]), K[0])
 
 
 @pytest.mark.parametrize("ard", [False, True])
