@@ -43,7 +43,23 @@ Phases, each printing its own lines:
                 posterior factor's backward error, and the -LML against float64
                 on the factor's own L L^T are checked; the -LML against float64
                 on the same Ky is printed as a reading;
-  7. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
+  7. loop     — leg A (run last), the tell-and-ask loop itself: ``regret_run`` on
+                branin (15 iterations) and hartmann6 (20 of the protocol's 30),
+                latin design of 5, EI, ``exact_feval``, float32, the two runs side by
+                side in interpreters of their own: every iteration ran, no fit
+                failed, branin's best under 1.0, hartmann6's regret inside the range
+                of the JAX package's stored CPU float64 runs after as many
+                evaluations; seconds per iteration split into
+                fit and acquisition. Leg B, the composite path at the main path's
+                size (N=4096, D=6): an ``Add`` of an ARD Matern52 and an
+                RBF on the first input, Gamma priors, a constant mean function, LCB
+                from Sobol anchors, ``run_optimization(max_iter=2)`` (three refits,
+                N grows to 4098 in the 8192 bucket): B1 launched twice per LML trial
+                of every fit, B1-B3 counts non-zero, -(LML + log prior) and its
+                start gradient against float64 on the card, the two suggestions in
+                the box and distinct; then one Thompson batch, one random batch and
+                one argmax by the host optimizer under a cost, each timed;
+  8. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -214,6 +230,7 @@ def phase_device():
 def phase_default_device():
     """A bare call of each entry point builds on the card."""
     from gaussian_process_optimization_tpu_torch import convert, workload
+    from gaussian_process_optimization_tpu_torch.bo.cost import CostModel
     from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52
     from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
     from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
@@ -221,6 +238,9 @@ def phase_default_device():
     X, Y = workload.thesis_data(n=16)
     model = workload.make_model(X, Y)
     built = {
+        "regret_run": workload.regret_run("forrester", 0, iters=0, max_iters=0).bo.model.device,
+        "composite_bo": workload.composite_bo(*workload.bench_data(n=16), steps=0).model.device,
+        "CostModel": CostModel("evaluation_time").cost_model.device,
         "make_model": model.X,
         "GPRegression.create": GPRegression.create(X, Y).X,
         "Matern52.create": Matern52.create(6).variance,
@@ -752,6 +772,215 @@ def phase_thesis(dev, nb: int = 256):
     return launches, err
 
 
+def _objective_and_gradient(obj, packer, model):
+    """The fit objective at the model's own parameters, and its gradient in
+    the packed coordinates (float64 tensors)."""
+    u = packer.pack(model)[None].clone().requires_grad_(True)
+    f = obj(u, model)[0]
+    (g,) = torch.autograd.grad(f, u)
+    return float(f.detach()), g[0].double()
+
+
+def _bench_cost(x):
+    """A smooth, positive, non-constant evaluation cost with its gradient."""
+    import numpy as np
+
+    x = np.atleast_2d(x)
+    c = 1.5 + 0.25 * x[:, :1] + 0.05 * x[:, 1:2] ** 2
+    return c, np.hstack([np.full_like(c, 0.25), 0.1 * x[:, 1:2], np.zeros_like(x[:, 2:])])
+
+
+# The protocol runs hartmann6 for 30 iterations; a refit at these sizes costs
+# 12-19 s of host time on the card (every lane runs its 1000 L-BFGS steps), so
+# the smoke stops after 20 and reads the stored runs at the same evaluation.
+HARTMANN6_ITERS = 20
+
+_LOOP_CHILD = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+from gaussian_process_optimization_tpu_torch import workload
+t0 = time.perf_counter()
+r = workload.regret_run({name!r}, seed=0, iters={iters})
+model = r.bo.model
+print("RESULT::" + json.dumps({{
+    "total": time.perf_counter() - t0, "seconds": r.seconds, "fx_opt": r.fx_opt,
+    "regret": r.regret, "evaluations": r.evaluations, "fit_failed": r.fit_failed,
+    "device": model.device.type, "dtype": str(model.dtype),
+    "rungs": sorted({{l["posterior_rung"] for l in model.ladder}}),
+    "fit_evaluations": [f.evaluations for f in model._fitters.values()]}}))
+"""
+
+
+def phase_loop_protocol():
+    """Leg A: the canonical drive script, on the default device in float32. At
+    N <= 35 a run is a host loop of small launches, so the two runs go side by
+    side, each in an interpreter of its own; nothing else runs meanwhile."""
+    stored = json.loads((ROOT / "benchmarks" / "regret_raw.json").read_text())["cpu_f64"]
+    runs = (("branin", 15), ("hartmann6", HARTMANN6_ITERS))
+    # the stored runs' largest regret after as many evaluations as this run makes
+    limit = max(row[5 + HARTMANN6_ITERS - 1] for row in stored["hartmann6"])
+    children = [subprocess.Popen(
+        [sys.executable, "-c", _LOOP_CHILD.format(root=str(ROOT), name=name, iters=iters)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for name, iters in runs]
+    try:
+        outputs = [child.communicate(timeout=900) for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for (name, iters), child, (out, err) in zip(runs, children, outputs):
+        lines = [line for line in out.splitlines() if line.startswith("RESULT::")]
+        if child.returncode != 0 or not lines:
+            raise AssertionError(f"loop {name}: the run failed (exit {child.returncode}):\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+        if "surrogate fit failed" in out:
+            raise AssertionError(f"loop {name}: a surrogate fit failed")
+        r = json.loads(lines[0][len("RESULT::"):])
+        print(f"# loop {name} (latin 5, EI, exact_feval, {iters} iterations, {r['dtype']}, "
+              f"{r['device']}; beside the other run): {r['total']:.2f} s; per iteration fit "
+              f"{r['seconds']['fit'] / (iters + 1):.3f} s, acquisition "
+              f"{r['seconds']['acquisition'] / iters:.3f} s; fx_opt {r['fx_opt']:.6f}, final "
+              f"regret {r['regret'][-1]:.6f}; ladder rungs {r['rungs']}; LML trials of each "
+              f"bucket's last fit {r['fit_evaluations']}")
+        if r["device"] != "cuda" or r["dtype"] != "torch.float32":
+            raise AssertionError(f"loop {name}: ran on {r['device']} in {r['dtype']}")
+        if r["evaluations"] != 5 + iters or r["fit_failed"]:
+            raise AssertionError(f"loop {name}: {r['evaluations']} evaluations of "
+                                 f"{5 + iters}, fit failed: {r['fit_failed']}")
+        if name == "branin" and not r["fx_opt"] < 1.0:
+            raise AssertionError(f"loop branin: fx_opt {r['fx_opt']} is not under 1.0")
+        if name == "hartmann6":
+            print(f"# loop hartmann6: regret {r['regret'][-1]:.6f} after {r['evaluations']} "
+                  f"evaluations against the largest of the JAX package's CPU float64 runs "
+                  f"after as many, {limit:.6f} (10 seeds, benchmarks/regret_raw.json)")
+            if not r["regret"][-1] <= limit:
+                raise AssertionError("loop hartmann6: regret outside the stored range")
+
+
+def phase_composite(dev):
+    """Leg B: the composite path at the main path's size."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.models import fit as fit_mod
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.utils.normalizer import normalize_stats
+    from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves, tree_map
+
+    counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
+                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    X, Y = workload.bench_data()
+    bo = workload.composite_bo(X, Y)
+    gm = bo.model
+    if gm.device.type != "cuda" or gm.dtype != torch.float32:
+        raise AssertionError(f"composite: built on {gm.device} in {gm.dtype}")
+
+    # the gradient at the fit's start, f32 against f64, every free leaf (both
+    # parts', the bounded noise, the mean function's constant)
+    gm._create_model(bo.space.unzip_inputs(X), np.asarray(normalize_stats(Y)), max_points=4096)
+    fitter = gm._fitter_for(4096)
+    names = [p for (p, _), fx in zip(named_leaves(gm.model), fitter.packer.fixed) if not fx]
+    _, g32 = _objective_and_gradient(fitter.objective, fitter.packer, gm.model)
+    _, g64 = _objective_and_gradient(fitter.objective, fitter.packer,
+                                     tree_map(lambda t: t.double(), gm.model))
+    grad_rel = float((g32 - g64).abs().max() / g64.abs().max())
+    print(f"# composite: free leaves {names}; -(LML + log prior) gradient at the fit's "
+          f"start, f32 vs f64: rel {grad_rel:.2e} of max |g| {float(g64.abs().max()):.4g}")
+
+    # every fit: B1 launches against LML trials
+    fits = []
+    real_solve = fit_mod.Fitter.solve
+
+    def solve(self, model, starts):
+        before = ck.stationary_k_build.launches
+        out = real_solve(self, model, starts)
+        fits.append((self.evaluations, ck.stationary_k_build.launches - before,
+                     out[1].num_ls.tolist()))
+        return out
+
+    fit_mod.Fitter.solve = solve
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        bo.run_optimization(max_iter=2, eps=-1)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        fit_mod.Fitter.solve = real_solve
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, post = gm.model, gm.posterior
+    print(f"# composite (N=4096 -> {len(bo.X)}, D=6, Matern52 ARD + RBF on input 0, Gamma "
+          f"priors, constant mean, LCB, Sobol anchors, 5x30 fits, f32): run_optimization(2) "
+          f"{total:.3f} s = fits {bo.seconds['fit']:.3f} s (3) + acquisitions "
+          f"{bo.seconds['acquisition']:.3f} s (2); buckets {sorted(gm._fitters)}; peak memory "
+          f"{peak:.2f} GiB")
+    print(f"# composite: per fit (LML trials, B1 launches, num_ls per lane) {fits}; ladder "
+          f"{gm.ladder}; launches {launches}")
+    print(f"# composite: suggestions {bo.X[4096:].tolist()}, Y {bo.Y[4096:, 0].tolist()}; "
+          f"fitted variances {[float(p.variance) for p in model.kern.parts]}, noise "
+          f"{float(model.likelihood_variance):.4g}, mean constant "
+          f"{float(model.mean_function.C):.4g}")
+    if bo._fit_failed or not bool(post.ok) or len(fits) != 3:
+        raise AssertionError("composite: a refit failed or did not run")
+    if len(bo.X) != 4098 or int(model.num_data) != 4098 or model.X.shape[0] != 8192:
+        raise AssertionError(f"composite: N is {len(bo.X)} in a bucket of {model.X.shape[0]}")
+    for trials, b1, _ in fits:
+        if b1 != 2 * trials or trials <= 0:
+            raise AssertionError(f"composite: {b1} B1 launches in a fit of {trials} LML "
+                                 "trials (two parts: twice as many)")
+    for k in ("B1", "B2", "B3"):
+        if launches[k] <= 0:
+            raise AssertionError(f"composite: kernel {k} was never launched")
+    new = bo.X[4096:]
+    if new.shape != (2, 6) or not np.all(np.abs(new) <= 2.0) or np.allclose(new[0], new[1]):
+        raise AssertionError(f"composite: suggestions {new}")
+
+    # -(LML + log prior) at the fitted point, f32 against f64 on the card
+    fitter = gm._fitter_for(8192)
+    f32, _ = _objective_and_gradient(fitter.objective, fitter.packer, model)
+    f64, _ = _objective_and_gradient(fitter.objective, fitter.packer,
+                                     tree_map(lambda t: t.double(), model))
+    plain = fit_mod.make_objective(fitter.packer)(fitter.packer.pack(model)[None], model)
+    lml_rel = abs(f32 - f64) / abs(f64)
+    print(f"# composite f32 vs f64: -(LML + log prior) at the fitted point {f32:.6f} vs "
+          f"{f64:.6f} (rel {lml_rel:.2e}); the log prior's share {f32 - float(plain[0]):.6f}")
+    if lml_rel > 1e-3 or grad_rel > GRAD_START_LIMIT:
+        raise AssertionError("composite: the float32 run disagrees with float64")
+
+    # the other evaluators and the host optimizer, on the fitted model (no refit)
+    fitted = dict(kernel=model.kern, mean_function=model.mean_function,
+                  noise_var=float(model.likelihood_variance), steps=0)
+    calls = (("thompson_sampling batch of 5", dict(evaluator_type="thompson_sampling",
+                                                   batch_size=5, de_duplication=True)),
+             ("random batch of 5", dict(evaluator_type="random", batch_size=5,
+                                        de_duplication=True)),
+             ("lbfgs_host argmax of EI under a cost", dict(
+                 acquisition_type="EI", acquisition_optimizer_type="lbfgs_host",
+                 cost_withGradients=_bench_cost)))
+    for label, kw in calls:
+        other = workload.composite_bo(bo.X, bo.Y, **fitted, **kw)
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        batch = other.suggest_next_locations()
+        seconds = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in counters.items()}
+        print(f"# composite, {label}: suggest_next_locations {seconds:.3f} s (posterior "
+              f"{other.fit_seconds:.3f} s), launches {delta}, batch {batch.tolist()}")
+        rows = kw.get("batch_size", 1)
+        if (batch.shape != (rows, 6) or not np.all(np.abs(batch) <= 2.0)
+                or len({tuple(r) for r in batch}) != rows):
+            raise AssertionError(f"composite, {label}: batch {batch}")
+        if "host" in label and not other.acquisition.has_cost:
+            raise AssertionError("composite: the host call's acquisition carries no cost")
+    return launches
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
@@ -764,7 +993,10 @@ def main():
     del L
     thesis_launches, b4_err = phase_thesis(dev)
     rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_err)
-    # B1 and B2 run on the main path, B4 on the thesis path, B3 on both
+    composite_launches = phase_composite(dev)
+    phase_loop_protocol()
+    # B1 and B2 run on the main and the composite path, B4 on the thesis path,
+    # B3 on all three; "launches" is the main path's count (B4: the thesis path's)
     launches["B4"] = thesis_launches["B4"]
     sources = {
         "B1": ("stationary_k_build", "gaussian_process_optimization_tpu_torch/csrc/stationary_k.cu",
@@ -782,6 +1014,8 @@ def main():
         r = rows[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[key],
+                        "launches_thesis": thesis_launches[key],
+                        "launches_composite": composite_launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_us": r["bound_us"], "bound_by": r["bound_by"],

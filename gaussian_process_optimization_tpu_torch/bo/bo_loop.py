@@ -6,8 +6,9 @@ stopping rules (max_iter, max_time, the last two points closer than eps), build
 the next batch, evaluate the objective. A fit whose posterior factorization
 fails even after one retry ends the run (bo.py:134-137). The loop is host
 Python; the surrogate and the acquisition run on the surrogate's device.
-Reports, plots and the saved per-iteration parameters are not ported.
-``fit_seconds`` is the host-clock time of the last refit.
+``fit_seconds`` is the host-clock time of the last refit; ``seconds`` sums the
+run's fit, acquisition and objective phases. The two plot methods of the
+reference are not ported.
 """
 from __future__ import annotations
 
@@ -37,13 +38,18 @@ class BO:
         self.model_update_interval = model_update_interval
         self.de_duplication = de_duplication
         self.num_acquisitions = 0
+        self.model_parameters_iterations = None
+        self.suggested_sample = None
+        self.Y_new = None
         self.context = None
         self.fit_seconds = None
+        self.seconds = {"fit": 0.0, "acquisition": 0.0, "objective": 0.0}
         self._fit_failed = False
 
     def suggest_next_locations(self, context=None, pending_X=None, ignored_X=None):
         """Ask (bo.py:55-71): fit on the current (X, Y) and return the next
         batch in objective space."""
+        self.model_parameters_iterations = None
         self.num_acquisitions = 0
         self.context = context
         self._update_model()
@@ -51,36 +57,60 @@ class BO:
                                               ignored_zipped_X=ignored_X)
 
     def run_optimization(self, max_iter=0, max_time=np.inf, eps=1e-8, context=None,
-                         verbosity=False):
+                         verbosity=False, save_models_parameters=True, report_file=None,
+                         evaluations_file=None, models_file=None):
         """(bo.py:73-197)"""
+        self.verbosity = verbosity
         self.context = context
         if self.X is not None and self.Y is None:
-            self.Y, _ = self.objective.evaluate(self.X)
-        max_iter = max_iter or 0
-        cum_time = 0.0
+            self.Y, cost_values = self.objective.evaluate(self.X)
+            if self.cost.cost_type == "evaluation_time":
+                self.cost.update_cost_model(self.X, cost_values)
+        self.max_iter = max_iter or 0
+        self.max_time = max_time
+        self.eps = eps
+        self.cum_time = 0.0
         self.num_acquisitions = 0
+        self.suggested_sample = self.X
+        self.Y_new = self.Y
         self._fit_failed = False
-        while max_time > cum_time:
+        self.seconds = {"fit": 0.0, "acquisition": 0.0, "objective": 0.0}
+        while self.max_time > self.cum_time:
             zero_time = time.time()
             self._update_model()
+            self.seconds["fit"] += time.time() - zero_time
             if self._fit_failed:
                 break
-            if (self.num_acquisitions >= max_iter
-                    or (len(self.X) > 1 and self._distance_last_evaluations() <= eps)):
+            if save_models_parameters:
+                self._save_model_parameter_values()
+            if (self.num_acquisitions >= self.max_iter
+                    or (len(self.X) > 1 and self._distance_last_evaluations() <= self.eps)):
                 break
-            suggested = self._compute_next_evaluations()
-            self.X = np.vstack((self.X, suggested))
-            Y_new, cost_new = self.objective.evaluate(suggested)
-            self.cost.update_cost_model(suggested, cost_new)
-            self.Y = np.vstack((self.Y, Y_new))
-            cum_time += time.time() - zero_time
+            t0 = time.time()
+            self.suggested_sample = self._compute_next_evaluations()
+            self.seconds["acquisition"] += time.time() - t0
+            self.X = np.vstack((self.X, self.suggested_sample))
+            t0 = time.time()
+            self.evaluate_objective()
+            self.seconds["objective"] += time.time() - t0
+            self.cum_time += time.time() - zero_time
             self.num_acquisitions += 1
             if verbosity:
                 print(f"num acquisition: {self.num_acquisitions}, "
-                      f"time elapsed: {cum_time:.2f}s")
-        self.Y_best = np.minimum.accumulate(self.Y[:, 0])
-        self.x_opt = self.X[np.argmin(self.Y[:, 0]), :]
-        self.fx_opt = float(np.min(self.Y[:, 0]))
+                      f"time elapsed: {self.cum_time:.2f}s")
+        self._compute_results()
+        if report_file is not None:
+            self.save_report(report_file)
+        if evaluations_file is not None:
+            self.save_evaluations(evaluations_file)
+        if models_file is not None:
+            self.save_models(models_file)
+
+    def evaluate_objective(self):
+        """(bo.py:191-197)"""
+        self.Y_new, cost_new = self.objective.evaluate(self.suggested_sample)
+        self.cost.update_cost_model(self.suggested_sample, cost_new)
+        self.Y = np.vstack((self.Y, self.Y_new))
 
     def _distance_last_evaluations(self):
         """(bo.py:207)"""
@@ -100,6 +130,8 @@ class BO:
             if not bool(self.model.posterior.ok):
                 print("Warning: surrogate fit failed (non-PD covariance); stopping.")
                 self._fit_failed = True
+        self.X_inmodel = X_inmodel
+        self.Y_inmodel = Y_inmodel
         self.fit_seconds = time.perf_counter() - t0
 
     def _compute_next_evaluations(self, pending_zipped_X=None, ignored_zipped_X=None):
@@ -114,3 +146,76 @@ class BO:
         suggested = self.evaluator.compute_batch(duplicate_manager=duplicate_manager,
                                                  context_manager=context_manager)
         return self.space.zip_inputs(suggested)
+
+    def _compute_results(self):
+        """(bo.py:199-205)"""
+        self.Y_best = np.minimum.accumulate(self.Y[:, 0])
+        self.x_opt = self.X[np.argmin(self.Y[:, 0]), :]
+        self.fx_opt = float(np.min(self.Y[:, 0]))
+
+    def _save_model_parameter_values(self):
+        """(bo.py:256)"""
+        params = self.model.get_model_parameters()
+        if self.model_parameters_iterations is None:
+            self.model_parameters_iterations = params
+        else:
+            self.model_parameters_iterations = np.vstack(
+                (self.model_parameters_iterations, params))
+
+    def save_report(self, report_file=None):
+        """The run's report as text (bo.py:301-345)."""
+        space = self.space
+        lines = [
+            "----------------------------- Report file -----------------------------------",
+            f"Date and time: {time.strftime('%c')}",
+            f"Number initial samples: {getattr(self, 'initial_design_numdata', '-')}",
+            f"Tolerance: {getattr(self, 'eps', '-')}",
+            f"Optimization time: {getattr(self, 'cum_time', '-')} seconds.",
+            "",
+            "-------------------------------- Problem set up ------------------------------------",
+            f"Problem dimension: {space.objective_dimensionality}",
+            f"Number continuous variables: {len(space.get_continuous_dims())}",
+            f"Number discrete variables: {len(space.get_discrete_dims())}",
+            f"Number bandits: {sum(1 for v in space.space_expanded if v.is_bandit)}",
+            f"Cost used: {self.cost.cost_type}",
+            f"Constraints: {bool(space.constraints)}",
+            "",
+            "------------------------------ Optimization set up ---------------------------------",
+            f"Normalized outputs: {self.normalize_Y}",
+            f"Model type: {type(self.model).__name__}",
+            f"Acquisition type: {type(self.acquisition).__name__}",
+            f"Evaluator type (batch size): {type(self.evaluator).__name__} "
+            f"({self.evaluator.batch_size})",
+            "",
+            "--------------------------------- Summary ------------------------------------------",
+            f"Value at minimum: {self.fx_opt}",
+            f"Best found minimum location: {self.x_opt}",
+        ]
+        with open(report_file, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    @staticmethod
+    def _write_tsv(path, header, rows):
+        with open(path, "w") as f:
+            f.write("\t".join(header) + "\n")
+            for row in rows:
+                f.write("\t".join(str(v) for v in row) + "\n")
+
+    def save_evaluations(self, evaluations_file=None):
+        """Iteration, Y, X as tab-separated values (bo.py:347-365)."""
+        iterations = np.arange(1, self.Y.shape[0] + 1)[:, None]
+        header = ["Iteration", "Y"] + [f"var_{i + 1}" for i in range(self.X.shape[1])]
+        self._write_tsv(evaluations_file, header, np.hstack([iterations, self.Y, self.X]))
+
+    def save_models(self, models_file):
+        """The hyperparameters of every iteration as tab-separated values
+        (bo.py:367-392)."""
+        if self.model_parameters_iterations is None:
+            raise ValueError("No iterations have been carried out yet; cannot save models")
+        params = self.model_parameters_iterations
+        iterations = np.arange(1, params.shape[0] + 1)[:, None]
+        header = ["Iteration"] + list(self.model.get_model_parameters_names())
+        self._write_tsv(models_file, header, np.hstack([iterations, params]))
+
+    def get_evaluations(self):
+        return self.X.copy(), self.Y.copy()

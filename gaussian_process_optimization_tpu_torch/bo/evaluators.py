@@ -1,6 +1,7 @@
 """Batch evaluators (twin of ``gaussian_process_optimization_tpu/bo/evaluators.py``;
-GPyOpt core/evaluators/: sequential.py:7, batch_local_penalization.py:9 with
-estimate_L:52). The random and Thompson-sampling batches are not ported yet.
+GPyOpt core/evaluators/: base.py:7 ``EvaluatorBase`` and
+``SamplingBasedBatchEvaluator``:21, sequential.py:7, batch_random.py:9,
+batch_thompson.py:10, batch_local_penalization.py:9 with estimate_L:52).
 """
 from __future__ import annotations
 
@@ -11,18 +12,149 @@ import torch
 
 from ..ops import lbfgs
 from .acquisitions import AcquisitionLP
+from .anchor_points import RandomAnchorPointsGenerator, ThompsonSamplingAnchorPointsGenerator
 
 
-class Sequential:
-    """One acquisition argmax per batch (sequential.py:7)."""
+class EvaluatorBase:
+    """(base.py:7)"""
 
-    def __init__(self, acquisition, batch_size=1):
+    def __init__(self, acquisition, batch_size, **kwargs):
         self.acquisition = acquisition
         self.batch_size = batch_size
 
     def compute_batch(self, duplicate_manager=None, context_manager=None):
+        raise NotImplementedError
+
+
+class Sequential(EvaluatorBase):
+    """One acquisition argmax per batch (sequential.py:7)."""
+
+    def __init__(self, acquisition, batch_size=1):
+        super().__init__(acquisition, batch_size)
+
+    def compute_batch(self, duplicate_manager=None, context_manager=None):
         x, _ = self.acquisition.optimize(duplicate_manager=duplicate_manager)
         return x
+
+
+class SamplingBasedBatchEvaluator(EvaluatorBase):
+    """(base.py:21): a batch built from anchor points, with the de-duplication
+    loop of compute_batch:46."""
+
+    def __init__(self, acquisition, batch_size, **kwargs):
+        super().__init__(acquisition, batch_size)
+        self.space = acquisition.space
+        self.num_anchor = 5 * batch_size
+
+    def initialize_batch(self, duplicate_manager=None, context_manager=None):
+        raise NotImplementedError
+
+    def get_anchor_points(self, duplicate_manager=None, context_manager=None):
+        raise NotImplementedError
+
+    def optimize_anchor_point(self, a, duplicate_manager=None, context_manager=None):
+        raise NotImplementedError
+
+    def compute_batch_without_duplicate_logic(self, context_manager=None):
+        raise NotImplementedError
+
+    def zip_and_tuple(self, x):
+        return tuple(self.space.zip_inputs(np.atleast_2d(x)).flatten())
+
+    def compute_batch(self, duplicate_manager=None, context_manager=None):
+        self.context_manager = context_manager
+        if not duplicate_manager:
+            return self.compute_batch_without_duplicate_logic(context_manager=context_manager)
+
+        batch, already = [], duplicate_manager.unique_points.copy()
+        anchor_points = self.get_anchor_points(duplicate_manager, context_manager)
+        x0 = self.initialize_batch(duplicate_manager, context_manager)
+        if x0 is not None and np.any(x0):
+            batch.append(x0)
+            already.add(self.zip_and_tuple(x0))
+        for a in anchor_points:
+            x = self.optimize_anchor_point(a, duplicate_manager, context_manager)
+            zx = self.zip_and_tuple(x)
+            if zx not in already:
+                batch.append(x)
+                already.add(zx)
+            else:
+                za = self.zip_and_tuple(a)
+                if za not in already:
+                    batch.append(a)
+                    already.add(za)
+            if len(batch) == self.batch_size:
+                break
+        if len(batch) < self.batch_size:
+            print(f"Warning: the batch of requested size {self.batch_size} could not be "
+                  f"entirely filled in (only {len(batch)} points)")
+        return np.vstack([np.atleast_2d(b) for b in batch])
+
+
+class RandomBatch(SamplingBasedBatchEvaluator):
+    """The first element by acquisition argmax, the rest uniformly random
+    (batch_random.py:9)."""
+
+    def initialize_batch(self, duplicate_manager=None, context_manager=None):
+        x, _ = self.acquisition.optimize(duplicate_manager=duplicate_manager)
+        return x
+
+    def get_anchor_points(self, duplicate_manager=None, context_manager=None):
+        gen = RandomAnchorPointsGenerator(self.space, "random")
+        return gen.get(num_anchor=self.num_anchor, duplicate_manager=duplicate_manager,
+                       unique=bool(duplicate_manager),
+                       context_manager=self.acquisition.optimizer.context_manager)
+
+    def optimize_anchor_point(self, a, duplicate_manager=None, context_manager=None):
+        return a
+
+    def compute_batch_without_duplicate_logic(self, context_manager=None):
+        x = self.initialize_batch()
+        anchors = self.get_anchor_points(context_manager=context_manager)
+        return np.vstack((x, anchors[:(self.batch_size - 1), :]))
+
+
+class ThompsonBatch(SamplingBasedBatchEvaluator):
+    """Each element by optimizing the acquisition from a Thompson-sampled
+    anchor (batch_thompson.py:10): the anchors are the best of 25000 random
+    points under one draw N(mu(x), sigma(x)) per point, and each is polished
+    by box-bounded L-BFGS on the acquisition (one lane of ``ops/lbfgs``)."""
+
+    def __init__(self, acquisition, batch_size):
+        super().__init__(acquisition, batch_size)
+        self.model = acquisition.model
+
+    def initialize_batch(self, duplicate_manager=None, context_manager=None):
+        return None
+
+    def get_anchor_points(self, duplicate_manager=None, context_manager=None):
+        gen = ThompsonSamplingAnchorPointsGenerator(self.space, "random", model=self.model)
+        return gen.get(num_anchor=self.num_anchor, duplicate_manager=duplicate_manager,
+                       unique=bool(duplicate_manager), context_manager=context_manager)
+
+    def optimize_anchor_point(self, a, duplicate_manager=None, context_manager=None):
+        """L-BFGS from this anchor, then round (batch_thompson.py:40-52)."""
+        acq = self.acquisition
+        bounds = self.space.get_bounds()
+        lo = np.asarray([b[0] for b in bounds], dtype=float)
+        hi = np.asarray([b[1] for b in bounds], dtype=float)
+        if context_manager is not None and context_manager.context_index:
+            lo[context_manager.context_index] = np.asarray(context_manager.context_value)
+            hi[context_manager.context_index] = np.asarray(context_manager.context_value)
+        gp, post, fmin, state = acq.device_args()
+
+        def t(v):
+            return torch.as_tensor(v, dtype=gp.X.dtype, device=gp.X.device)
+
+        res = lbfgs.minimize(lambda A: acq.pure_neg_acq(gp, post, fmin, state, A),
+                             t(np.atleast_2d(a)), lower=t(lo), upper=t(hi),
+                             maxiter=acq.optimizer.maxiter, carry_graph=False)
+        return self.space.round_optimum(res.x[0].cpu().numpy())
+
+    def compute_batch_without_duplicate_logic(self, context_manager=None):
+        anchors = self.get_anchor_points(context_manager=context_manager)
+        return np.vstack([self.optimize_anchor_point(a, context_manager=context_manager)
+                          for a, _ in zip(anchors, range(self.batch_size))])
 
 
 def _neg_grad_norm(gp, post, X):
@@ -65,7 +197,7 @@ def estimate_L(model, bounds, seed=0):
     return L
 
 
-class LocalPenalization:
+class LocalPenalization(EvaluatorBase):
     """Greedy local-penalization batch (batch_local_penalization.py:9): the
     first point is the acquisition's argmax, each next one the argmax of the
     acquisition penalized around the points chosen so far. ``seconds`` holds
@@ -75,8 +207,7 @@ class LocalPenalization:
     def __init__(self, acquisition, batch_size):
         if not isinstance(acquisition, AcquisitionLP):
             raise TypeError("LocalPenalization needs an AcquisitionLP")
-        self.acquisition = acquisition
-        self.batch_size = batch_size
+        super().__init__(acquisition, batch_size)
         self.seconds = {}
 
     def compute_batch(self, duplicate_manager=None, context_manager=None):

@@ -1,14 +1,22 @@
 """Acquisition optimization (twin of ``gaussian_process_optimization_tpu/bo/optimizer.py``;
 GPyOpt optimization/acquisition_optimizer.py:16 ``AcquisitionOptimizer``,
-``ContextManager``:82, optimizer.py ``apply_optimizer``:130).
+``ContextManager``:82, optimizer.py ``OptLbfgs``:28, ``apply_optimizer``:130).
 
-The reference's device path: a numpy-seeded random sweep of the space, the
-best few sweep points as anchors, box-bounded L-BFGS from every anchor at once
-(here the anchors are the lanes of one ``ops/lbfgs.minimize`` call, value and
-gradient by autograd), then rounding to the mixed space, re-scoring, and the
-de-duplicated minimum. Context variables are held by collapsing their bounds to
-a point. The reference's scipy host path (``optimize_host``, for surrogates
-without tensor code or with a cost model) is not ported.
+Two paths, chosen as the reference chooses (``optimize``):
+
+- the device path (optimizer ``'lbfgs'``, no evaluation cost): a sweep of the
+  space by an experiment design, the best few sweep points as anchors,
+  box-bounded L-BFGS from every anchor at once (the anchors are the lanes of
+  one ``ops/lbfgs.minimize`` call, value and gradient by autograd), then
+  rounding to the mixed space, re-scoring, and the de-duplicated minimum;
+- the host path (``optimize_host``: ``'lbfgs_host'``, ``'DIRECT'``, ``'CMA'``, or
+  any optimizer when the acquisition carries a cost): GPyOpt's own flow, the
+  anchors scored by the host acquisition and scipy L-BFGS-B (or DIRECT, or
+  CMA-ES) from each anchor, one point per call of the acquisition.
+
+Context variables are held by collapsing their bounds to a point. The
+reference's ``mesh`` argument (the sweep and the anchors sharded over devices)
+is not ported.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops import lbfgs
+from .anchor_points import ObjectiveAnchorPointsGenerator
 from .designs import initial_design
 from .variables import FullyExploredOptimizationDomainError
 
@@ -46,20 +55,71 @@ class ContextManager:
 SWEEP = 1000
 ANCHORS = 5
 MAXITER = 200
+OPTIMIZERS = ("lbfgs", "lbfgs_host", "DIRECT", "CMA")
 
 
 class AcquisitionOptimizer:
-    """(acquisition_optimizer.py:16): a random sweep of ``SWEEP`` points,
-    ``ANCHORS`` anchors, ``MAXITER`` L-BFGS steps. The sweep's seed starts at 0
-    and steps by one per call."""
+    """(acquisition_optimizer.py:16): a ``design_type`` sweep of ``num_samples``
+    points, ``num_anchor`` anchors, ``maxiter`` L-BFGS steps. ``optimizer`` is
+    'lbfgs' (the device path), 'lbfgs_host' (scipy L-BFGS-B on the host
+    acquisition), 'DIRECT' or 'CMA'. The sweep's seed starts at ``seed`` and
+    steps by one per call."""
 
-    def __init__(self, space):
+    def __init__(self, space, optimizer="lbfgs", model=None, design_type="random",
+                 num_samples=SWEEP, num_anchor=ANCHORS, maxiter=MAXITER, seed=0):
+        if optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown acquisition optimizer {optimizer!r}; "
+                             f"one of {OPTIMIZERS}")
         self.space = space
+        self.optimizer_name = optimizer
+        self.model = model
+        self.design_type = design_type
+        self.num_samples = num_samples
+        self.num_anchor = num_anchor
+        self.maxiter = maxiter
         self.context_manager = None
-        self._seed = 0
+        self._seed = seed
 
     def optimize(self, acq, duplicate_manager=None):
-        """(x_min (1, model_dim), fx_min (1, 1)) as numpy, like the reference (:45-79)."""
+        """(x_min (1, model_dim), fx_min (1, 1)) as numpy (:45-79): the device
+        path for 'lbfgs' without a cost, else the host path."""
+        if self.optimizer_name == "lbfgs" and not acq.has_cost:
+            return self._optimize_device(acq, duplicate_manager)
+        f_df = acq.acquisition_function_withGradients if acq.analytical_gradient_acq else None
+        return self.optimize_host(f=acq.acquisition_function, f_df=f_df,
+                                  duplicate_manager=duplicate_manager)
+
+    def _box(self):
+        """The model-space box, context dimensions collapsed to their value."""
+        bounds = self.space.get_bounds()
+        lo = np.asarray([b[0] for b in bounds], dtype=float)
+        hi = np.asarray([b[1] for b in bounds], dtype=float)
+        cm = self.context_manager
+        if cm is not None and cm.context_index:
+            lo[cm.context_index] = np.asarray(cm.context_value)
+            hi[cm.context_index] = np.asarray(cm.context_value)
+        return lo, hi
+
+    def _rounded(self, x):
+        """A continuous optimum rounded to the mixed space, context re-applied."""
+        cm = self.context_manager
+        xr = self.space.round_optimum(x)[0]
+        if cm is not None and cm.context_index:
+            xr[cm.context_index] = np.asarray(cm.context_value)
+        return xr
+
+    @staticmethod
+    def _select(C, fC, duplicate_manager):
+        """The best candidate that is not a duplicate (optimizer.py:130-168)."""
+        if duplicate_manager:
+            dup = np.asarray([duplicate_manager.is_unzipped_x_duplicate(c) for c in C])
+            if not np.all(dup):
+                fC = np.where(dup, np.inf, fC)
+        best = int(np.argmin(fC))
+        return np.atleast_2d(C[best]), np.atleast_2d(fC[best])
+
+    # ------------------------------------------------------------- device path
+    def _optimize_device(self, acq, duplicate_manager):
         space = self.space
         cm = self.context_manager
         gp, post, fmin, state = acq.device_args()
@@ -69,9 +129,9 @@ class AcquisitionOptimizer:
                 X = torch.as_tensor(Xm, dtype=gp.X.dtype, device=gp.X.device)
                 return acq.pure_neg_acq(gp, post, fmin, state, X).cpu().numpy()
 
-        # 1) anchor sweep: sample, drop duplicates, score, best ANCHORS
+        # 1) anchor sweep: sample, drop duplicates, score, best num_anchor
         self._seed += 1
-        X_obj = initial_design("random", space, SWEEP, seed=self._seed)
+        X_obj = initial_design(self.design_type, space, self.num_samples, seed=self._seed)
         if duplicate_manager:
             keep = [i for i, x in enumerate(X_obj)
                     if not duplicate_manager.is_zipped_x_duplicate(x)]
@@ -85,39 +145,75 @@ class AcquisitionOptimizer:
         scores = score(Xm)
         if space.has_constraints():
             scores = np.where(space.indicator_constraints(Xm).flatten() == 1, scores, np.inf)
-        anchors = Xm[np.argsort(scores)[:ANCHORS]]
+        anchors = Xm[np.argsort(scores)[:self.num_anchor]]
 
         # 2) box-bounded L-BFGS, one lane per anchor (context dims collapsed)
-        bounds = space.get_bounds()
-        lo = np.asarray([b[0] for b in bounds], dtype=float)
-        hi = np.asarray([b[1] for b in bounds], dtype=float)
-        if cm is not None and cm.context_index:
-            lo[cm.context_index] = np.asarray(cm.context_value)
-            hi[cm.context_index] = np.asarray(cm.context_value)
+        lo, hi = self._box()
 
         def t(a):
             return torch.as_tensor(a, dtype=gp.X.dtype, device=gp.X.device)
 
         res = lbfgs.minimize(lambda A: acq.pure_neg_acq(gp, post, fmin, state, A),
-                             t(anchors), lower=t(lo), upper=t(hi), maxiter=MAXITER,
+                             t(anchors), lower=t(lo), upper=t(hi), maxiter=self.maxiter,
                              carry_graph=False)
         xs = res.x.cpu().numpy()
 
-        # 3) round, re-apply context, re-score, drop duplicates, select
-        #    (optimizer.py:130-168 apply_optimizer); the anchors are the fallback
-        candidates = []
-        for x in xs:
-            xr = space.round_optimum(x)[0]
-            if cm is not None and cm.context_index:
-                xr[cm.context_index] = np.asarray(cm.context_value)
-            candidates.append(xr)
-        C = np.vstack(candidates + list(anchors))
+        # 3) round, re-apply context, re-score, drop duplicates, select; the
+        #    anchors are the fallback
+        C = np.vstack([self._rounded(x) for x in xs] + list(anchors))
         fC = score(C)
         if space.has_constraints():
             fC = np.where(space.indicator_constraints(C).flatten() == 1, fC, np.inf)
-        if duplicate_manager:
-            dup = np.asarray([duplicate_manager.is_unzipped_x_duplicate(c) for c in C])
-            if not np.all(dup):
-                fC = np.where(dup, np.inf, fC)
-        best = int(np.argmin(fC))
-        return np.atleast_2d(C[best]), np.atleast_2d(fC[best])
+        return self._select(C, fC, duplicate_manager)
+
+    # ------------------------------------------------------------- host path
+    def optimize_host(self, f=None, f_df=None, duplicate_manager=None):
+        """GPyOpt's own path: anchors scored by ``f``, then from each anchor
+        scipy L-BFGS-B (optimizer.py OptLbfgs:28), DIRECT (OptDirect:64, run
+        once: it does not start from an anchor) or CMA-ES (OptCma:97), and
+        ``apply_optimizer``:130. ``f`` and ``f_df`` take ``(n, d)`` numpy
+        arrays."""
+        import scipy.optimize
+
+        anchor_gen = ObjectiveAnchorPointsGenerator(
+            self.space, self.design_type, f, num_samples=self.num_samples)
+        self._seed += 1
+        anchors = anchor_gen.get(
+            num_anchor=self.num_anchor, duplicate_manager=duplicate_manager,
+            unique=bool(duplicate_manager), context_manager=self.context_manager,
+            seed=self._seed)
+        lo, hi = self._box()
+        box = list(zip(lo, hi))
+        max_evals = min(4 * self.maxiter, 1000)
+
+        def flat(X):
+            return np.asarray(f(X)).flatten()
+
+        if self.optimizer_name == "DIRECT":
+            anchors = anchors[:1]
+        candidates = []
+        for a in anchors:
+            if self.optimizer_name == "DIRECT":
+                from ..ops.direct import direct_minimize
+
+                x, _ = direct_minimize(flat, lo, hi, max_evals=max_evals)
+            elif self.optimizer_name == "CMA":
+                from ..ops.cmaes import cma_minimize
+
+                x, _ = cma_minimize(flat, a, lo, hi, max_evals=max_evals)
+            else:
+                if f_df is not None:
+                    def func(x):
+                        fx, dfx = f_df(np.atleast_2d(x))
+                        return np.asarray(fx).flatten()[0], np.asarray(dfx).flatten()
+                else:
+                    def func(x):
+                        return float(flat(np.atleast_2d(x))[0])
+                res = scipy.optimize.minimize(func, a, method="L-BFGS-B",
+                                              jac=f_df is not None, bounds=box,
+                                              options={"maxiter": self.maxiter})
+                # scipy's ABNORMAL_TERMINATION: keep the anchor (optimizer.py:54-56)
+                x = res.x if np.isfinite(res.fun) else a
+            candidates.append(self._rounded(x))
+        C = np.vstack(candidates + list(anchors))
+        return self._select(C, flat(C), duplicate_manager)

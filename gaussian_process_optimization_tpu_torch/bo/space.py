@@ -55,6 +55,14 @@ class DesignSpace:
         return [self._objective_slices[i].start
                 for i, v in enumerate(self.space_expanded) if v.is_continuous]
 
+    def get_discrete_dims(self):
+        return [self._objective_slices[i].start
+                for i, v in enumerate(self.space_expanded) if v.is_discrete]
+
+    def get_discrete_values(self):
+        """Allowed values per discrete variable (space.py:460)."""
+        return [list(v.domain) for v in self.space_expanded if v.is_discrete]
+
     def get_bounds(self):
         """Model-space bounds (space.py:263)."""
         bounds = []

@@ -1,7 +1,7 @@
-from .base import Kernel
+from .base import Add, Kernel, Prod
 from .gower import Gower
 from .stationary import (OU, RBF, Cosine, Exponential, ExpQuad, Matern32, Matern52,
-                         RatQuad, Stationary)
+                         RatQuad, Sinc, Stationary)
 
-__all__ = ["Kernel", "Gower", "Stationary", "RBF", "ExpQuad", "Exponential", "OU", "Matern32",
-           "Matern52", "Cosine", "RatQuad"]
+__all__ = ["Kernel", "Add", "Prod", "Gower", "Stationary", "RBF", "ExpQuad", "Exponential",
+           "OU", "Matern32", "Matern52", "Cosine", "Sinc", "RatQuad"]

@@ -87,6 +87,37 @@ class Stationary(Kernel):
     def K_of_r(self, r):
         raise NotImplementedError
 
+    def input_sensitivity(self, summarize=True):
+        """variance / lengthscale^2 per dimension (GPy stationary.py:270)."""
+        return (self.variance / torch.square(self.lengthscale)).expand(self.input_dim)
+
+    def curvature0(self):
+        """-2 d(K_of_r2)/d(r2) at r2 == 0 (r2 in lengthscale-scaled units): the
+        diagonal curvature d2k/dx_a dx'_a at coincident points is
+        curvature0 / lengthscale_a^2. Differentiated from ``K_of_r2`` where the
+        kernel has one; the sqrt families give the analytic constant;
+        Exponential and OU are not twice differentiable at r = 0 and raise."""
+        if self.K_of_r2 is not None:
+            with torch.enable_grad():
+                u0 = torch.zeros_like(self.variance).requires_grad_(True)
+                (g,) = torch.autograd.grad(self.K_of_r2(u0).sum(), u0)
+            return -2.0 * g
+        raise NotImplementedError(
+            f"{type(self).__name__} has no diagonal curvature "
+            "(not C^2 at r=0, or curvature0 not implemented)")
+
+    def d2K_dXdX2_diag(self, x):
+        """Analytic prior curvature at the diagonal: curvature0 / l_a^2 on the
+        kernel's active dimensions, 0 elsewhere (nested differentiation through
+        the guarded sqrt returns 0 for the sqrt families)."""
+        vec = (self.curvature0() / torch.square(self.lengthscale)).expand(self.input_dim)
+        D = x.shape[-1]
+        idx = list(self.active_dims if self.active_dims is not None
+                   else range(self.input_dim))
+        out = torch.zeros(D, D, dtype=vec.dtype, device=vec.device)
+        out[idx, idx] = vec
+        return out
+
     def _scaled_dist(self, X, X2=None):
         """r scaled by lengthscale; ARD divides per dimension first."""
         if self.is_ard:
@@ -161,6 +192,10 @@ class Matern32(Stationary):
         s3r = math.sqrt(3.0) * r
         return self._lane(self.variance) * (1.0 + s3r) * torch.exp(-s3r)
 
+    def curvature0(self):
+        # k(u) = v (1 + sqrt(3u)) exp(-sqrt(3u)) = v (1 - (3/2) u + O(u^{3/2}))
+        return 3.0 * self.variance
+
 
 @dataclasses.dataclass(frozen=True)
 class Matern52(Stationary):
@@ -173,6 +208,10 @@ class Matern52(Stationary):
         return (self._lane(self.variance) * (1.0 + s5r + 5.0 / 3.0 * torch.square(r))
                 * torch.exp(-s5r))
 
+    def curvature0(self):
+        # k(u) = v (1 + sqrt(5u) + 5u/3) exp(-sqrt(5u)) = v (1 - (5/6) u + O(u^{3/2}))
+        return 5.0 / 3.0 * self.variance
+
 
 @dataclasses.dataclass(frozen=True)
 class Cosine(Stationary):
@@ -182,6 +221,26 @@ class Cosine(Stationary):
 
     def K_of_r(self, r):
         return self._lane(self.variance) * torch.cos(r)
+
+    def curvature0(self):
+        # k(u) = v cos(sqrt(u)) = v (1 - u/2 + O(u^2))
+        return self.variance
+
+
+@dataclasses.dataclass(frozen=True)
+class Sinc(Stationary):
+    """sigma^2 sin(2r) / (2r), a band-limited kernel (GPy stationary.py Sinc).
+    It is not one of the CUDA kernels' seven families, so it always takes the
+    plain path."""
+
+    _family = "sinc"
+
+    def K_of_r(self, r):
+        return self._lane(self.variance) * torch.sinc(2.0 * r / math.pi)
+
+    def curvature0(self):
+        # k(u) = v sin(2 sqrt(u)) / (2 sqrt(u)) = v (1 - (2/3) u + O(u^2))
+        return 4.0 / 3.0 * self.variance
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,4 +266,4 @@ class RatQuad(Stationary):
 
 FAMILY_CLASSES = {"rbf": RBF, "exponential": Exponential, "ou": OU,
                   "matern32": Matern32, "matern52": Matern52, "cosine": Cosine,
-                  "ratquad": RatQuad}
+                  "ratquad": RatQuad, "sinc": Sinc}

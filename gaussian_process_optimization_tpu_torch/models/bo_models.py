@@ -15,6 +15,10 @@ greedy ladder from ``jitter_hint``, the posterior re-verifies the minimal rung,
 and that rung is the next refit's hint. ``ladder`` records, per refit, the
 hint the fit started from and the posterior's rung.
 
+``mean_function`` and ``priors`` (field name -> Prior, ``models/fit.py``) go
+to the model and to its fits; ``optimizer`` and ``verbose`` are GPyOpt's
+arguments, kept and unused (the fit is this package's L-BFGS).
+
 Tensors live on ``device`` (the card unless another is named) in ``dtype``;
 fit restarts draw from ``generator`` (a ``torch.Generator`` on that device,
 seeded from ``seed`` by default).
@@ -32,6 +36,7 @@ from ..kernels.gower import Gower
 from ..kernels.stationary import Matern52
 from .fit import Fitter
 from .gp import GPRegression
+from ..utils.tree import leaf_name, named_leaves
 from .parameters import bounded_noise_transform
 
 
@@ -43,14 +48,21 @@ def _bucket(n: int, minimum: int = 16) -> int:
 class GPModel:
     """Exact, padded GP surrogate (GPyOpt gpmodel.py:9)."""
 
-    def __init__(self, kernel=None, noise_var=None, exact_feval=False, max_iters=1000,
-                 optimize_restarts=5, ARD=False, Gower=False, space=None, seed=0,
-                 device=None, dtype=torch.float64, generator=None):
+    analytical_gradient_prediction = True
+
+    def __init__(self, kernel=None, noise_var=None, exact_feval=False, optimizer="lbfgs",
+                 max_iters=1000, optimize_restarts=5, verbose=False, ARD=False, Gower=False,
+                 space=None, mean_function=None, priors=None, seed=0, device=None,
+                 dtype=torch.float64, generator=None):
         self.kernel_template = kernel
         self.noise_var = noise_var
         self.exact_feval = exact_feval
+        self.optimizer_name = optimizer
         self.max_iters = max_iters
         self.optimize_restarts = optimize_restarts
+        self.verbose = verbose
+        self.mean_function = mean_function
+        self.priors = priors
         self.ARD = ARD
         self.Gower = Gower
         self.space = space
@@ -92,6 +104,7 @@ class GPModel:
         if kern is None:
             kern = self._default_kernel(X.shape[1])
         model = GPRegression.create(X, Y, kernel=kern, noise_var=noise,
+                                    mean_function=self.mean_function,
                                     max_points=max_points, dtype=self.dtype,
                                     device=self.device)
         self.model = dataclasses.replace(
@@ -106,7 +119,8 @@ class GPModel:
                 fix, overrides = (), {"likelihood_variance": bounded_noise_transform()}
             self._fitters[bucket] = Fitter(self.model, num_restarts=self.optimize_restarts,
                                            maxiter=self.max_iters, fix=fix,
-                                           transform_overrides=overrides)
+                                           transform_overrides=overrides,
+                                           priors=self.priors)
         return self._fitters[bucket]
 
     def updateModel(self, X_all, Y_all, X_new=None, Y_new=None):
@@ -137,6 +151,13 @@ class GPModel:
             s = torch.sqrt(torch.clamp(v, min=config.variance_floor))
         return mu.cpu().numpy(), s.cpu().numpy()
 
+    def predict_covariance(self, X):
+        """The full predictive covariance at ``X``, as numpy."""
+        with torch.no_grad():
+            _, cov = self.model.predict(self._tensor(np.atleast_2d(X)), full_cov=True,
+                                        posterior=self.posterior)
+        return cov.cpu().numpy()
+
     def predict_withGradients(self, X):
         """(m, s, dm/dx, ds/dx) as numpy; ds = dv/dx / (2 s) (gpmodel.py:131-141)."""
         X = self._tensor(np.atleast_2d(X))
@@ -162,7 +183,29 @@ class GPModel:
         Y = self.model.Y[self.model.mask > 0]
         return float(Y.min())
 
+    def _parameter_leaves(self):
+        return named_leaves(_Parameters(self.model.kern, self.model.likelihood_variance))
+
+    def get_model_parameters(self):
+        """The kernel's leaves and the noise as one ``(1, n)`` row (gpmodel.py:143)."""
+        return np.atleast_2d(np.concatenate(
+            [t.detach().cpu().numpy().ravel() for _, t in self._parameter_leaves()]))
+
+    def get_model_parameters_names(self):
+        """One name per leaf, as the reference's: the leaf's last attribute
+        name ('' for the noise, which stands alone beside the kernel)."""
+        return [leaf_name(path) if path.startswith("kern") else ""
+                for path, _ in self._parameter_leaves()]
+
     def device_state(self):
         """(model, posterior, fmin) for the acquisitions' tensor code."""
         fmin = torch.tensor(self.get_fmin(), dtype=self.dtype, device=self.device)
         return self.model, self.posterior, fmin
+
+
+@dataclasses.dataclass(frozen=True)
+class _Parameters:
+    """(kernel, noise): what ``get_model_parameters`` reports."""
+
+    kern: object = None
+    noise: torch.Tensor = None

@@ -1,19 +1,21 @@
 """Hyperparameter fitting: multi-restart L-BFGS on the negative log marginal
-likelihood (twin of ``gaussian_process_optimization_tpu/models/fit.py``).
+likelihood plus log prior (twin of ``gaussian_process_optimization_tpu/models/fit.py``).
 
 The reference vmaps one L-BFGS program over its restarts; here the restarts
 are the lane axis of one batched program (``ops/lbfgs.py``), and the model's
 hyperparameters carry that axis through ``Packer.unpack``. Drawing the restart
 starts is split from the solve, so a caller (or a test) can hand in its own.
-Priors are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..ops import lbfgs
+from ..utils.priors import Prior
+from ..utils.tree import leaf_name, named_leaves
 from .parameters import make_packer
 
 # the reference Fitter's defaults (fit.py:64): L-BFGS memory, and line-search
@@ -23,12 +25,37 @@ HISTORY = 10
 MAX_LS = 8
 
 
-def make_objective(packer):
-    """obj(U, model) = -LML of the model with packed parameters U; ``U (B, n)``
-    gives one value per lane, ``(B,)``. Priors are not ported yet."""
+def make_objective(packer, priors: dict[str, Prior] | None = None):
+    """obj(U, model) = -(LML + log prior) of the model with packed parameters
+    U; ``U (B, n)`` gives one value per lane, ``(B,)``.
+
+    ``priors`` maps a field name to a Prior on the constrained value (GPy
+    core/model.py:101-127: objective = -logL - logPrior); the name is the
+    leaf's last attribute name, so ``lengthscale`` reaches every part of a
+    combination kernel. A priored leaf that is not fixed also gets its
+    transform's log-Jacobian, so the density is the change-of-variables one in
+    the optimizer's coordinates (GPy priorizable.py:57-65)."""
+
+    def log_prior(m):
+        total = 0.0
+        for (path, leaf), shape, t, fx in zip(named_leaves(m), packer.shapes,
+                                              packer.transforms, packer.fixed):
+            pr = priors.get(leaf_name(path))
+            if pr is None:
+                continue
+            dims = tuple(range(leaf.ndim - len(shape), leaf.ndim))  # not the lanes
+            term = pr.lnpdf(leaf)
+            if not fx:
+                term = term + t.log_jacobian(leaf)
+            total = total + (torch.sum(term, dim=dims) if dims else term)
+        return total
 
     def obj(U, model):
-        return -packer.unpack(U, reference=model).log_marginal_likelihood()
+        m = packer.unpack(U, reference=model)
+        total = m.log_marginal_likelihood()
+        if priors:
+            total = total + log_prior(m)
+        return -total
 
     return obj
 
@@ -37,18 +64,23 @@ class Fitter:
     """Multi-restart fit for one model structure (``Fitter``, fit.py:64).
     Restart 0 starts from the model's own parameters; the others from N(0, 1)
     draws routed through each transform's ``random_restart``. ``fix`` and
-    ``transform_overrides`` go to :func:`make_packer`. The objective factors
-    with the model's own ladder hint and policy (``GPRegression.jitter_hint``,
-    ``jitter_greedy``)."""
+    ``transform_overrides`` go to :func:`make_packer`, ``priors`` to
+    :func:`make_objective`. The objective factors with the model's own ladder
+    hint and policy (``GPRegression.jitter_hint``, ``jitter_greedy``)."""
 
     def __init__(self, template_model: Any, num_restarts: int = 5, maxiter: int = 1000,
-                 tol: float = 1e-5, fix: tuple = (), transform_overrides: dict | None = None):
+                 tol: float = 1e-5, fix: tuple = (), transform_overrides: dict | None = None,
+                 priors: dict[str, Prior] | None = None, history: int = HISTORY,
+                 max_ls: int = MAX_LS):
         self.packer = make_packer(template_model, fix=fix,
                                   transform_overrides=transform_overrides)
         self.num_restarts = num_restarts
         self.maxiter = maxiter
         self.tol = tol
-        self.objective = make_objective(self.packer)
+        self.history = history
+        self.max_ls = max_ls
+        self.objective = make_objective(self.packer, priors=priors)
+        self.evaluations = 0
 
     def draw_starts(self, model, generator: torch.Generator | None = None) -> torch.Tensor:
         """``(num_restarts, n)`` unconstrained starts."""
@@ -63,13 +95,54 @@ class Fitter:
 
     def solve(self, model, starts: torch.Tensor):
         """Run the lanes from ``starts``; returns ``(fitted model, LBFGSResult)``
-        with the best finite lane's parameters."""
-        res = lbfgs.minimize(lambda U: self.objective(U, model), starts,
-                             maxiter=self.maxiter, tol=self.tol, history=HISTORY,
-                             max_ls=MAX_LS, carry_graph=True)
+        with the best finite lane's parameters. ``evaluations`` counts the
+        batched objective calls (one forward of every lane each)."""
+        self.evaluations = 0
+
+        def objective(U):
+            self.evaluations += 1
+            return self.objective(U, model)
+
+        res = lbfgs.minimize(objective, starts,
+                             maxiter=self.maxiter, tol=self.tol, history=self.history,
+                             max_ls=self.max_ls, carry_graph=True)
         f = torch.where(torch.isfinite(res.f), res.f, torch.full_like(res.f, float("inf")))
         best = int(torch.argmin(f))
         return self.packer.unpack(res.x[best], reference=model), res
 
     def __call__(self, model, generator: torch.Generator | None = None):
         return self.solve(model, self.draw_starts(model, generator))
+
+
+def checkgrad(model, fix: tuple = (), transform_overrides: dict | None = None, priors=None,
+              eps: float = 1e-4, rtol: float = 1e-3, atol: float = 1e-6,
+              verbose: bool = False) -> bool:
+    """paramz ``m.checkgrad()``: central finite differences of the packed
+    objective against its autograd gradient, in the optimizer's coordinates."""
+    packer = make_packer(model, fix=fix, transform_overrides=transform_overrides)
+    obj = make_objective(packer, priors=priors)
+    u0 = packer.pack(model).detach()
+    u = u0.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(obj(u[None], model)[0], u)
+    g = g.cpu().numpy().astype(float)
+    fd = np.zeros_like(g)
+    with torch.no_grad():
+        for i in range(u0.numel()):
+            up, um = u0.clone(), u0.clone()
+            up[i] += eps
+            um[i] -= eps
+            fd[i] = (float(obj(up[None], model)[0]) - float(obj(um[None], model)[0])) / (2 * eps)
+    ok = bool(np.allclose(g, fd, rtol=rtol, atol=atol))
+    if verbose or not ok:
+        print("checkgrad: analytic", g, "numeric", fd)
+    return ok
+
+
+def fit(model, num_restarts: int = 5, maxiter: int = 1000,
+        generator: torch.Generator | None = None, fix: tuple = (),
+        transform_overrides: dict | None = None, priors: dict[str, Prior] | None = None,
+        **kw):
+    """One-shot fit (GPy ``m.optimize_restarts(...)``): ``(fitted, LBFGSResult)``."""
+    fitter = Fitter(model, num_restarts=num_restarts, maxiter=maxiter, fix=fix,
+                    transform_overrides=transform_overrides, priors=priors, **kw)
+    return fitter(model, generator)

@@ -32,6 +32,7 @@ from ..kernels.base import Kernel
 from ..kernels.stationary import RBF
 from ..ops import linalg
 from ..utils.normalizer import Standardize
+from .mean_functions import Mapping
 
 LOG_2_PI = math.log(2.0 * math.pi)
 
@@ -49,19 +50,23 @@ def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
 class AssembleKy(torch.autograd.Function):
     """Ky = masked_gram(K + diag(noise), mask) as one differentiable unit
     (the reference's ``_assemble_ky`` custom VJP, gp.py:116-156).
-    noise: one homoscedastic variance per lane (shape ``lanes``)."""
+    noise: one homoscedastic variance per lane (shape ``lanes``), or with
+    ``per_point`` one variance per lane and row (shape ``lanes + (N,)``). The
+    flag, not the shape, tells the two apart: 5 lanes of 5 rows are both."""
 
     @staticmethod
-    def forward(ctx, K, noise, mask):
-        batch = torch.broadcast_shapes(K.shape[:-2], noise.shape)
+    def forward(ctx, K, noise, mask, per_point=False):
+        if not per_point:
+            noise = noise[..., None]
+        batch = torch.broadcast_shapes(K.shape[:-2], noise.shape[:-1])
         Ky = K.expand(batch + K.shape[-2:]).clone()
-        Ky.diagonal(dim1=-2, dim2=-1).add_(noise.to(K.dtype)[..., None])
+        Ky.diagonal(dim1=-2, dim2=-1).add_(noise.to(K.dtype))
         if mask is not None:
             m = mask.to(K.dtype)
             Ky.mul_(m[:, None] * m[None, :])
             Ky.diagonal(dim1=-2, dim2=-1).add_(1.0 - m)
         ctx.save_for_backward(mask)
-        ctx.k_shape, ctx.noise_shape = K.shape, noise.shape
+        ctx.k_shape, ctx.noise_shape, ctx.per_point = K.shape, noise.shape, per_point
         return Ky
 
     @staticmethod
@@ -74,8 +79,10 @@ class AssembleKy(torch.autograd.Function):
             dK = _sum_to(dK, ctx.k_shape)
         if ctx.needs_input_grad[1]:
             diag = torch.diagonal(dKy, dim1=-2, dim2=-1)
-            dnoise = _sum_to((diag if m is None else diag * m).sum(-1), ctx.noise_shape)
-        return dK, dnoise, None
+            dnoise = _sum_to(diag if m is None else diag * m, ctx.noise_shape)
+            if not ctx.per_point:
+                dnoise = dnoise[..., 0]
+        return dK, dnoise, None, None
 
 
 class ExactCore(torch.autograd.Function):
@@ -134,24 +141,33 @@ class GPRegression:
     ``Y (N, P)`` may be padded to a fixed budget; ``mask (N,)`` flags real rows.
     ``jitter_hint`` (a scalar, None = 0) is the first ladder rung probed, a data
     leaf; ``jitter_greedy`` keeps the first rung that factors instead of
-    verifying the minimal one (``ops/linalg.jitchol_full``)."""
+    verifying the minimal one (``ops/linalg.jitchol_full``).
+
+    Noise and lanes: ``likelihood_variance`` has shape ``lanes`` (one variance
+    per lane), or ``lanes + (N,)`` when ``heteroscedastic`` (one per lane and
+    row, GPy's HeteroscedasticGaussian). The static flag decides, never the
+    shape."""
 
     kern: Kernel = None
     likelihood_variance: torch.Tensor = None
     X: torch.Tensor = None
     Y: torch.Tensor = None
     mask: torch.Tensor = None
+    mean_function: Mapping = None
     normalizer: Standardize = None
     jitter_hint: torch.Tensor = None
     jitter_greedy: bool = False
+    heteroscedastic: bool = False
 
     @classmethod
-    def create(cls, X, Y, kernel: Kernel | None = None, noise_var: float = 1.0,
-               normalizer: bool = False, max_points: int | None = None,
-               dtype=torch.float64, device=None) -> "GPRegression":
+    def create(cls, X, Y, kernel: Kernel | None = None, noise_var=1.0,
+               normalizer: bool = False, mean_function: Mapping | None = None,
+               max_points: int | None = None, dtype=torch.float64,
+               device=None) -> "GPRegression":
         """GPy-style constructor (gp.py:215-268): optional padding to
         ``max_points`` rows with a mask (always present when padding is asked
-        for). Homoscedastic noise only. ``device`` None means the card."""
+        for). A scalar ``noise_var`` is homoscedastic; an ``(N,)`` vector gives
+        each row its own noise. ``device`` None means the card."""
         device = resolve_device(device)
         X = torch.as_tensor(np.asarray(X), dtype=dtype, device=device)
         X = X.reshape(1, -1) if X.ndim == 1 else X
@@ -169,19 +185,45 @@ class GPRegression:
             X = torch.cat([X, X.new_zeros(pad, d)])
             Y = torch.cat([Y, Y.new_zeros(pad, Y.shape[1])])
             mask = (torch.arange(max_points, device=X.device) < n).to(dtype)
-        noise = torch.as_tensor(noise_var, dtype=dtype, device=device)
-        if noise.numel() != 1:
-            raise ValueError("heteroscedastic noise is not ported; pass a scalar noise_var")
-        return cls(kern=kernel, likelihood_variance=noise.reshape(()), X=X, Y=Y,
-                   mask=mask, normalizer=norm)
+        if isinstance(noise_var, torch.Tensor):
+            noise = noise_var.detach().to(dtype=dtype, device=device)
+        else:
+            noise = torch.as_tensor(np.asarray(noise_var, dtype=float), dtype=dtype,
+                                    device=device)
+        hetero = noise.ndim > 0 and noise.numel() != 1
+        if hetero:
+            noise = noise.reshape(-1)
+            if noise.shape[0] != n:
+                raise ValueError(f"heteroscedastic noise_var has {noise.shape[0]} entries "
+                                 f"for {n} data points")
+            if max_points is not None:
+                # padded like X and Y; the value is never read: the padded rows
+                # of Ky are replaced by identity rows
+                noise = torch.cat([noise, noise.new_ones(max_points - n)])
+        else:
+            noise = noise.reshape(())
+        return cls(kern=kernel, likelihood_variance=noise, X=X, Y=Y, mask=mask,
+                   mean_function=mean_function, normalizer=norm, heteroscedastic=hetero)
 
     def with_data(self, X, Y, max_points: int | None = None) -> "GPRegression":
         """The same model on new data (GPy ``set_XY``, gp.py:270-301): the
-        normalizer is refitted, and the ladder's hint and policy carry over."""
+        normalizer is refitted, and the ladder's hint and policy carry over. A
+        per-row noise belongs to the old rows, so it carries over only to the
+        same number of rows."""
+        noise = self.likelihood_variance
+        if self.heteroscedastic:
+            n_new = np.atleast_2d(np.asarray(X)).shape[0]
+            n_old = int(self.num_data)
+            if n_new != n_old:
+                raise ValueError(
+                    "with_data on a heteroscedastic model with a different number of "
+                    "rows: per-point noise for the new rows is unknown; rebuild with "
+                    "GPRegression.create(..., noise_var=<per-point variances>)")
+            noise = noise[:n_old]  # strip the padding; create() pads again
         new = GPRegression.create(
-            X, Y, kernel=self.kern, noise_var=self.likelihood_variance,
-            normalizer=self.normalizer is not None, max_points=max_points,
-            dtype=self.X.dtype, device=self.X.device)
+            X, Y, kernel=self.kern, noise_var=noise,
+            normalizer=self.normalizer is not None, mean_function=self.mean_function,
+            max_points=max_points, dtype=self.X.dtype, device=self.X.device)
         return dataclasses.replace(new, jitter_hint=self.jitter_hint,
                                    jitter_greedy=self.jitter_greedy)
 
@@ -192,7 +234,12 @@ class GPRegression:
         return torch.sum(self.mask)
 
     def _normalized_Y(self):
+        """Centred targets; under lanes in the mean function's leaves,
+        ``lanes + (N, P)``. The graph from the mean function's parameters to
+        the result is kept: their gradient flows through ``Yc``."""
         Yn = self.normalizer.normalize(self.Y) if self.normalizer is not None else self.Y
+        if self.mean_function is not None:
+            Yn = Yn - self.mean_function.f(self.X)
         if self.mask is not None:
             Yn = Yn * self.mask[:, None]
         return Yn
@@ -200,16 +247,42 @@ class GPRegression:
     def _effective_noise(self, dtype):
         """sigma^2 + 1e-8, floored in float32 only (``config.f32_noise_floor``):
         f32 Cholesky cannot resolve a smaller noise once the kernel variance
-        grows, and the kernels run in f32 on the card."""
+        grows, and the kernels run in f32 on the card. Shaped as
+        ``likelihood_variance`` is."""
         noise = self.likelihood_variance + config.noise_jitter
         if dtype == torch.float32:
             noise = torch.clamp(noise, min=config.f32_noise_floor)
         return noise
 
+    def _noise_at_test(self, noise_at_test=None):
+        """Likelihood variance added at test points (gp.py:328). A scalar model
+        gives its scalar (an explicit ``noise_at_test`` overrides it). A
+        heteroscedastic model's training noises do not determine the noise at
+        a test point, so the caller says what is meant: ``'mean'`` (mean over
+        the real training rows), a scalar, or an ``(M,)`` array."""
+        v = self.likelihood_variance
+        if isinstance(noise_at_test, str) and noise_at_test != "mean":
+            raise ValueError(f"unknown noise_at_test mode {noise_at_test!r}")
+        if not self.heteroscedastic:
+            if noise_at_test is None or isinstance(noise_at_test, str):
+                return v
+            return torch.as_tensor(noise_at_test, dtype=v.dtype, device=v.device)
+        if noise_at_test is None:
+            raise ValueError(
+                "heteroscedastic model: test-point likelihood variance is ambiguous; "
+                "pass noise_at_test='mean', a scalar, or a per-test-point (M,) array, "
+                "or use predict_noiseless()")
+        if isinstance(noise_at_test, str):
+            if self.mask is not None:
+                return torch.sum(v * self.mask, -1) / torch.clamp(torch.sum(self.mask), min=1.0)
+            return torch.mean(v, -1)
+        return torch.as_tensor(noise_at_test, dtype=v.dtype, device=v.device)
+
     def _core(self):
         Yc = self._normalized_Y()
         K = self.kern.K(self.X)
-        Ky = AssembleKy.apply(K, self._effective_noise(K.dtype), self.mask)
+        Ky = AssembleKy.apply(K, self._effective_noise(K.dtype), self.mask,
+                              self.heteroscedastic)
         del K
         logdet, quad, L, t, jitter, ok, rung = ExactCore.apply(
             Ky, Yc, self.jitter_hint, self.jitter_greedy)
@@ -234,30 +307,58 @@ class GPRegression:
             Kx = Kx * self.mask[:, None]
         return Kx
 
-    def _raw_predict(self, Xnew, posterior: Posterior | None = None):
+    def _half(self, post: Posterior, Kx):
+        """L^-1 Kx, by matmul when the posterior carries Li."""
+        return post.Li @ Kx if post.Li is not None else linalg.solve_lower(post.L, Kx)
+
+    def _raw_predict(self, Xnew, full_cov: bool = False, posterior: Posterior | None = None):
         """Latent mean and variance in normalized space (PosteriorExact._raw_predict).
-        ``Xnew`` is ``(M, D)`` or lane-batched ``(B, M, D)``."""
+        ``Xnew`` is ``(M, D)`` or lane-batched ``(B, M, D)``; with ``full_cov``
+        the ``(M, M)`` covariance instead of the ``(M, 1)`` variances."""
         post = posterior if posterior is not None else self.inference()
         Kx = self._cross(Xnew)
         mu = Kx.transpose(-1, -2) @ post.alpha
-        tmp = post.Li @ Kx if post.Li is not None else linalg.solve_lower(post.L, Kx)
+        if self.mean_function is not None:
+            mu = mu + self.mean_function.f(Xnew)
+        tmp = self._half(post, Kx)
+        if full_cov:
+            return mu, linalg.symmetrify(self.kern.K(Xnew) - tmp.transpose(-1, -2) @ tmp)
         var = self.kern.Kdiag(Xnew) - torch.sum(torch.square(tmp), dim=-2)
         return mu, torch.clamp(var, min=1e-15)[..., None]
 
-    def predict(self, Xnew, posterior: Posterior | None = None):
-        """Mean and variance, likelihood noise included, in original Y units
-        (GPy gp.py:297)."""
-        mu, var = self._raw_predict(Xnew, posterior=posterior)
-        var = var + self.likelihood_variance
+    def predict(self, Xnew, full_cov: bool = False, include_likelihood: bool = True,
+                posterior: Posterior | None = None, noise_at_test=None):
+        """Mean and variance in original Y units, the likelihood's noise added
+        unless ``include_likelihood`` is off (GPy gp.py:297). ``noise_at_test``
+        chooses a heteroscedastic model's noise at the test points
+        (:meth:`_noise_at_test`)."""
+        mu, var = self._raw_predict(Xnew, full_cov=full_cov, posterior=posterior)
+        if include_likelihood:
+            noise = self._noise_at_test(noise_at_test)
+            if full_cov:
+                var = var + torch.diag(noise.to(var.dtype).expand(var.shape[-1]))
+            elif noise.ndim == 1 and not (noise_at_test is None
+                                          or isinstance(noise_at_test, str)):
+                var = var + noise[:, None]           # one variance per test point
+            else:
+                var = var + (noise[..., None, None] if noise.ndim else noise)  # per lane
         if self.normalizer is not None:
             mu = self.normalizer.inverse_mean(mu)
-            var = self.normalizer.inverse_variance(var)
+            var = (self.normalizer.inverse_covariance(var) if full_cov
+                   else self.normalizer.inverse_variance(var))
         return mu, var
+
+    def predict_noiseless(self, Xnew, full_cov: bool = False,
+                          posterior: Posterior | None = None):
+        return self.predict(Xnew, full_cov=full_cov, include_likelihood=False,
+                            posterior=posterior)
 
     def predict_mean(self, Xnew, posterior: Posterior):
         """The predictive mean alone, in original Y units (``predict``'s first
         output without the variance's O(N^2 M) work)."""
         mu = self._cross(Xnew).transpose(-1, -2) @ posterior.alpha
+        if self.mean_function is not None:
+            mu = mu + self.mean_function.f(Xnew)
         return self.normalizer.inverse_mean(mu) if self.normalizer is not None else mu
 
     def predictive_gradients(self, Xnew, posterior: Posterior | None = None):
@@ -275,3 +376,97 @@ class GPRegression:
                                for p in range(mu.shape[-1])], dim=-1)
             (dvar,) = torch.autograd.grad(var.sum(), X)
         return dmu, dvar
+
+    def posterior_samples_f(self, Xnew, size: int, generator: torch.Generator | None = None,
+                            z: torch.Tensor | None = None,
+                            posterior: Posterior | None = None):
+        """``(M, size)`` samples of the latent function (GPy gp.py:585):
+        mu + chol(cov + 1e-10 I) z. The standard normals ``z (M, size)`` are
+        drawn from ``generator`` unless handed in."""
+        mu, cov = self._raw_predict(Xnew, full_cov=True, posterior=posterior)
+        m = Xnew.shape[0]
+        cov = cov + 1e-10 * torch.eye(m, dtype=cov.dtype, device=cov.device)
+        Lc, _, _ = linalg.jitchol(cov)
+        if z is None:
+            z = torch.randn((m, size), generator=generator, dtype=cov.dtype,
+                            device=cov.device)
+        samples = mu + Lc @ z
+        if self.normalizer is not None:
+            samples = self.normalizer.inverse_mean(samples)
+        return samples
+
+    def posterior_samples(self, Xnew, size: int, generator: torch.Generator | None = None,
+                          z: torch.Tensor | None = None, noise_at_test=None,
+                          posterior: Posterior | None = None):
+        """``(M, size)`` samples of noisy observations (GPy gp.py:611). ``z`` is
+        ``(2, M, size)``: the latent draws, then the noise draws."""
+        if z is None:
+            z = torch.randn((2, Xnew.shape[0], size), generator=generator,
+                            dtype=self.X.dtype, device=self.X.device)
+        f = self.posterior_samples_f(Xnew, size, z=z[0], posterior=posterior)
+        noise = self._noise_at_test(noise_at_test)
+        noise_std = torch.sqrt(noise[:, None] if noise.ndim == 1 else noise)  # no lanes here
+        if self.normalizer is not None:
+            noise_std = noise_std * self.normalizer.std.reshape(-1)[0]
+        return f + noise_std * z[1]
+
+    def predict_quantiles(self, Xnew, quantiles=(2.5, 97.5), noise_at_test=None,
+                          posterior: Posterior | None = None):
+        """Predictive quantiles in percent (GPy gp.py:384): mu + sd Phi^-1(q / 100),
+        a list of ``(M, P)`` tensors."""
+        mu, var = self.predict(Xnew, posterior=posterior, noise_at_test=noise_at_test)
+        sd = torch.sqrt(var)
+        return [mu + math.sqrt(2.0) * float(torch.special.erfinv(
+            torch.tensor(2.0 * q / 100.0 - 1.0, dtype=torch.float64))) * sd
+            for q in quantiles]
+
+    def log_predictive_density(self, x_test, y_test, noise_at_test=None,
+                               posterior: Posterior | None = None):
+        """Per-point log p(y* | D) under the Gaussian predictive, in original Y
+        units (GPy gp.py:680)."""
+        y_test = torch.as_tensor(y_test, dtype=self.X.dtype, device=self.X.device)
+        y_test = y_test.reshape(1, -1) if y_test.ndim < 2 else y_test
+        mu, var = self.predict(x_test, posterior=posterior, noise_at_test=noise_at_test)
+        return -0.5 * (LOG_2_PI + torch.log(var) + torch.square(y_test - mu) / var)
+
+    def posterior_covariance_between_points(self, X1, X2,
+                                            posterior: Posterior | None = None):
+        """K(X1, X2) - K(X, X1)^T Ky^-1 K(X, X2) in normalized space (GPy gp.py:714)."""
+        post = posterior if posterior is not None else self.inference()
+        t1, t2 = self._half(post, self._cross(X1)), self._half(post, self._cross(X2))
+        return self.kern.K(X1, X2) - t1.transpose(-1, -2) @ t2
+
+    def predict_jacobian(self, Xnew, posterior: Posterior | None = None):
+        """Mean and covariance of the derivative of the posterior GP (GPy
+        gp.py:456): ``(mean_jac (M, D, P), var_jac (M, D, D))`` with
+        Cov[df/dx] = d2k/dx dx' - (dKx/dx)^T Ky^-1 (dKx/dx'), in normalized
+        space. The prior curvature is the kernel's ``d2K_dXdX2_diag``. Column m
+        of K(X, Xnew) depends on row m of Xnew alone, so one forward-mode pass
+        per input dimension gives dKx/dx for every test point."""
+        post = posterior if posterior is not None else self.inference()
+        M, D = Xnew.shape
+        cols = []
+        for d in range(D):
+            tangent = torch.zeros_like(Xnew)
+            tangent[:, d] = 1.0
+            cols.append(torch.func.jvp(self._cross, (Xnew,), (tangent,))[1])
+        dKx = torch.stack(cols, dim=-1)                       # (N, M, D)
+        mean_jac = torch.einsum("nmd,np->mdp", dKx, post.alpha)
+        J = self._half(post, dKx.reshape(dKx.shape[0], M * D)).reshape(-1, M, D)
+        data = torch.einsum("nmd,nme->mde", J, J)
+        prior = torch.stack([self.kern.d2K_dXdX2_diag(x) for x in Xnew])
+        return mean_jac, prior - data
+
+    def log_likelihood_LOO(self):
+        """Leave-one-out predictive log density per row
+        (exact_gaussian_inference.py LOO:77)."""
+        post = self.inference()
+        Yc = self._normalized_Y()
+        diag_Ki = torch.diagonal(linalg.dpotri(post.L))
+        var_loo = 1.0 / diag_Ki
+        mu_loo = Yc - post.alpha / diag_Ki[:, None]
+        lpd = -0.5 * (LOG_2_PI + torch.log(var_loo)[:, None]
+                      + torch.square(Yc - mu_loo) / var_loo[:, None])
+        if self.mask is not None:
+            lpd = lpd * self.mask[:, None]
+        return lpd

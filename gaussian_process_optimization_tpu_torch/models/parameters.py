@@ -1,10 +1,12 @@
 """Default parameterization rules (twin of ``gaussian_process_optimization_tpu/models/parameters.py``):
-which leaves are trainable, and under which transform, by field name."""
+which leaves are trainable, and under which transform, by field name. The name
+is the leaf's last attribute name, so ``variance`` of every part of an ``Add``
+gets the same transform."""
 from __future__ import annotations
 
 from ..utils.packing import Packer
 from ..utils.transforms import IDENTITY, POSITIVE, Logistic
-from ..utils.tree import named_leaves
+from ..utils.tree import leaf_name, named_leaves
 
 POSITIVE_NAMES = {
     "variance", "variances", "lengthscale", "likelihood_variance", "power",
@@ -21,21 +23,25 @@ DATA_NAMES = {
 
 
 def leaf_names(model) -> list[str]:
-    """Field name of each leaf (the last path component)."""
-    return [path.rsplit(".", 1)[-1] for path, _ in named_leaves(model)]
+    """Field name of each leaf (the last attribute name of its path)."""
+    return [leaf_name(path) for path, _ in named_leaves(model)]
 
 
-def make_packer(model, fix: tuple = (), transform_overrides: dict | None = None) -> Packer:
+def make_packer(model, fix: tuple = (), train_only: tuple | None = None,
+                transform_overrides: dict | None = None) -> Packer:
     """Packer with the reference's defaults (``make_packer``, parameters.py:59):
     data leaves fixed, positive leaves through softplus. ``fix`` freezes more
-    fields by name (the noise under GPyOpt's ``exact_feval``);
-    ``transform_overrides`` maps a field name to its transform (the bounded
-    noise otherwise). The reference's ``train_only`` is not ported."""
+    fields by name (the noise under GPyOpt's ``exact_feval``); ``train_only``,
+    if given, names the only trainable fields; ``transform_overrides`` maps a
+    field name to its transform (the bounded noise otherwise)."""
     names = leaf_names(model)
     overrides = transform_overrides or {}
     transforms = [overrides.get(name, POSITIVE if name in POSITIVE_NAMES else IDENTITY)
                   for name in names]
-    fixed = [name in DATA_NAMES or name in fix for name in names]
+    if train_only is not None:
+        fixed = [name not in train_only for name in names]
+    else:
+        fixed = [name in DATA_NAMES or name in fix for name in names]
     return Packer(model, transforms=transforms, fixed=fixed)
 
 

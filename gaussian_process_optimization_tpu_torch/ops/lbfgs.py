@@ -40,28 +40,28 @@ class LBFGSResult(NamedTuple):
 
 
 def _two_loop(k, g, S, Ys, rho, gamma, m):
-    """Per-lane two-loop recursion over each lane's ring of (s, y) pairs."""
-    kk = torch.clamp(k, max=m)
-    q = g.clone()
-    a = torch.zeros_like(rho)
-    lanes = torch.arange(g.shape[0], device=g.device)
-    for i in range(m):
-        idx = torch.remainder(k - 1 - i, m)
-        r = rho[lanes, idx]
-        valid = (i < kk) & (r > 0)
-        ai = torch.where(valid, r * torch.sum(S[lanes, idx] * q, dim=-1),
-                         torch.zeros_like(r))
-        q = q - ai[:, None] * Ys[lanes, idx]
-        a[lanes, idx] = ai
+    """Per-lane two-loop recursion over each lane's ring of (s, y) pairs. The
+    ring is gathered once into chronological order (position 0 the oldest), and
+    a slot that holds no pair yet, or a rejected one, gets rho = 0, which makes
+    its step of either loop the identity; the arithmetic on the valid slots is
+    that of the reference's masked loops, in the same order."""
+    n = g.shape[-1]
+    pos = torch.arange(m, device=g.device)
+    order = torch.remainder(k[:, None] - m + pos[None, :], m)
+    Sc = torch.gather(S, 1, order[:, :, None].expand(-1, -1, n)).unbind(1)
+    Yc = torch.gather(Ys, 1, order[:, :, None].expand(-1, -1, n)).unbind(1)
+    rc = torch.gather(rho, 1, order)
+    valid = (pos[None, :] >= (m - torch.clamp(k, max=m))[:, None]) & (rc > 0)
+    rc = torch.where(valid, rc, torch.zeros_like(rc)).unbind(1)
+    q = g
+    a = [None] * m
+    for j in reversed(range(m)):  # newest first
+        a[j] = rc[j] * torch.sum(Sc[j] * q, dim=-1)
+        q = q - a[j][:, None] * Yc[j]
     q = q * gamma[:, None]
-    for i in range(m):
-        idx = torch.remainder(k - m + i, m)
-        r = rho[lanes, idx]
-        valid = (i >= m - kk) & (r > 0)
-        b = torch.where(valid, r * torch.sum(Ys[lanes, idx] * q, dim=-1),
-                        torch.zeros_like(r))
-        q = q + torch.where(valid, a[lanes, idx] - b, torch.zeros_like(b))[:, None] \
-            * S[lanes, idx]
+    for j in range(m):  # oldest first
+        b = rc[j] * torch.sum(Yc[j] * q, dim=-1)
+        q = q + (a[j] - b)[:, None] * Sc[j]
     return -q
 
 

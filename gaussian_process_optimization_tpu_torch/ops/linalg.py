@@ -161,6 +161,38 @@ def jitchol_full(A: torch.Tensor, k_start=None, greedy: bool = False):
     return L_b, j_b, ok_b, rung
 
 
+class _JitChol(torch.autograd.Function):
+    """The ladder's L with the Cholesky pullback (the reference's
+    ``_jitchol_bwd``, linalg.py:271-287): A_bar = (S + S^T) / 2 with
+    S = L^-T Phi(L^T L_bar) L^-1, Phi the lower triangle with a halved
+    diagonal. The jitter the ladder chose is held constant."""
+
+    @staticmethod
+    def forward(ctx, A, k_start, greedy):
+        L, jitter, ok, rung = jitchol_full(A, k_start=k_start, greedy=greedy)
+        ctx.save_for_backward(L)
+        ctx.mark_non_differentiable(jitter, ok, rung)
+        return L, jitter, ok, rung
+
+    @staticmethod
+    def backward(ctx, L_bar, *_):
+        (L,) = ctx.saved_tensors
+        W = torch.tril(L.transpose(-1, -2) @ L_bar)
+        W.diagonal(dim1=-2, dim2=-1).mul_(0.5)
+        Lt = L.transpose(-1, -2)
+        tmp = torch.linalg.solve_triangular(Lt, W, upper=True)
+        S = torch.linalg.solve_triangular(Lt, tmp.transpose(-1, -2), upper=True)
+        S = S.transpose(-1, -2)
+        return 0.5 * (S + S.transpose(-1, -2)), None, None
+
+
+def jitchol(A: torch.Tensor, k_start=None, greedy: bool = False):
+    """``(L, jitter, ok)`` of the jitter ladder (GPy jitchol, util/linalg.py:56-74),
+    differentiable in ``A`` through the Cholesky pullback."""
+    L, jitter, ok, _ = _JitChol.apply(A, k_start, greedy)
+    return L, jitter, ok
+
+
 def _expand_rhs(L, B):
     batch = torch.broadcast_shapes(L.shape[:-2], B.shape[:-2])
     return L.expand(batch + L.shape[-2:]), B.expand(batch + B.shape[-2:])
@@ -236,6 +268,45 @@ def tri_inv_lower(L: torch.Tensor, block: int = 256) -> torch.Tensor:
         s *= 2
     out = inv[..., 0, :, :]
     return out[..., :n, :n] if n_pad != n else out
+
+
+def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(L L^T) x = B given the lower Cholesky factor (GPy dpotrs, util/linalg.py:116)."""
+    return solve_lower_t(L, solve_lower(L, B))
+
+
+def dpotri(L: torch.Tensor) -> torch.Tensor:
+    """The inverse of A = L L^T from its Cholesky factor (GPy dpotri, util/linalg.py:127)."""
+    return tri_tdot(tri_inv_lower(L))
+
+
+def pdinv(A: torch.Tensor):
+    """(A^-1, L, L^-1, logdet) for symmetric positive definite A (GPy pdinv,
+    util/linalg.py:193)."""
+    L, _, _ = jitchol(A)
+    Li = tri_inv_lower(L)
+    return tri_tdot(Li), L, Li, logdet_from_chol(L)
+
+
+def cholupdate(L: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Rank-1 update chol(L L^T + x x^T) of one ``(n, n)`` factor, by the
+    orthogonal Givens form c = Lkk / r, s = xk / r: defined for a semidefinite
+    factor too (Lkk == 0 gives c = 0; r == 0 is the identity rotation), where
+    GPy's loop (linalg_cython.pyx cholupdate) divides by the pivot."""
+    L = L.clone()
+    x = x.reshape(-1).clone()
+    n = x.shape[0]
+    for k in range(n):
+        Lkk, xk = L[k, k].clone(), x[k].clone()
+        r = torch.sqrt(Lkk * Lkk + xk * xk)
+        r_safe = torch.where(r == 0, torch.ones_like(r), r)
+        c = torch.where(r == 0, torch.ones_like(r), Lkk / r_safe)
+        s = xk / r_safe
+        col = L[k + 1:, k].clone()
+        L[k + 1:, k] = c * col + s * x[k + 1:]
+        x[k + 1:] = c * x[k + 1:] - s * col
+        L[k, k] = r
+    return L
 
 
 def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:

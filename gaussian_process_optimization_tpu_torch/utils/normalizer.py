@@ -30,6 +30,10 @@ class Standardize:
     def inverse_variance(self, var):
         return var * torch.square(self.std)
 
+    def inverse_covariance(self, cov):
+        # single output: cov * std^2
+        return cov * torch.square(self.std).reshape(-1)[0]
+
 
 def normalize_stats(Y):
     """GPyOpt 'stats' normalization (util/general.py:211), host numpy:

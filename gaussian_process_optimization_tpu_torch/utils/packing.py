@@ -45,6 +45,11 @@ class Packer:
     def fixed(self):
         return tuple(self._fixed)
 
+    @property
+    def shapes(self):
+        """Each leaf's shape in the template (without lane axes)."""
+        return tuple(self._shapes)
+
     def pack(self, model: Any) -> torch.Tensor:
         leaves = [t for _, t in named_leaves(model)]
         if len(leaves) != len(self._transforms):

@@ -1,4 +1,4 @@
-"""The bench's two workloads, through the port's own entry points.
+"""The bench's workloads, through the port's own entry points.
 
 The main path, one BO iteration as the JAX package's ``bench.py`` (``run_ours``)
 defines it: a padded ``GPRegression`` with an ARD Matern52 kernel on the bench's
@@ -12,6 +12,17 @@ on 4 continuous and 2 discrete inputs with the Gower kernel, ``exact_feval``,
 and a local-penalization batch of 5, one ``suggest_next_locations`` per
 iteration (fit, Lipschitz estimate, 5 penalized argmaxes).
 
+The sequential loop (``regret_run``): one run of the regret protocol of
+``benchmarks/regret_compare.py``, ``BayesianOptimization(f, domain, EI, latin
+init 5, exact_feval).run_optimization(iters, eps=-1)`` on one of the test
+functions of ``bo/objectives.py``.
+
+The composite path (``composite_bo``): the main path's data under the options the
+main path leaves out: an ``Add`` kernel (ARD Matern52 on every input plus an RBF
+on the first), Gamma priors on every lengthscale and variance, a constant mean
+function, the LCB acquisition from Sobol anchors, and the tell-and-ask loop on
+the recipe's noise-free function.
+
 The sizes are arguments, so a test can run the same functions small.
 """
 from __future__ import annotations
@@ -21,14 +32,28 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bo import objectives
 from .bo.acquisitions import neg_ei
 from .bo.methods import BayesianOptimization
+from .bo.space import bounds_to_space
 from .config import resolve_device
-from .kernels.stationary import Matern52
+from .kernels.stationary import RBF, Matern52
 from .models.fit import Fitter
 from .models.gp import GPRegression, Posterior
+from .models.mean_functions import Constant
 from .ops import lbfgs
 from .ops.lbfgs import LBFGSResult
+from .utils.priors import GammaPrior
+
+# benchmarks/regret_compare.py:28-35: name -> (iterations, bounds, None = the function's own)
+FUNC_SPECS = {
+    "forrester": (20, None),
+    "branin": (20, None),
+    "sixhumpcamel": (25, None),
+    "alpine1": (25, [(-10.0, 10.0)] * 2),
+    "ackley": (25, [(-32.768, 32.768)] * 2),
+    "hartmann6": (30, None),
+}
 
 # bench.py:70-76
 N = 4096
@@ -150,3 +175,64 @@ def thesis_iteration(bo: BayesianOptimization) -> ThesisIteration:
     seconds = bo.evaluator.seconds
     return ThesisIteration(batch=batch, fit_s=bo.fit_seconds,
                            estimate_L_s=seconds["estimate_L"], argmax_s=seconds["argmax"])
+
+
+@dataclasses.dataclass
+class RegretRun:
+    regret: list             # best-so-far minus the function's minimum, per evaluation
+    fx_opt: float
+    evaluations: int
+    fit_failed: bool
+    seconds: dict            # the loop's host-clock sums: fit, acquisition, objective
+    bo: BayesianOptimization
+
+
+def regret_run(func_name: str, seed: int, iters: int | None = None, device=None,
+               dtype=torch.float32, **kwargs) -> RegretRun:
+    """One run of the regret protocol (benchmarks/regret_compare.py:61-68): EI,
+    latin initial design of 5, ``exact_feval``, ``eps=-1`` so that every
+    iteration runs. ``iters`` None is the protocol's count for the function;
+    ``device`` None means the card."""
+    func = getattr(objectives, func_name)
+    spec_iters, bounds = FUNC_SPECS.get(func_name, (20, None))
+    bo = BayesianOptimization(
+        f=func, domain=bounds_to_space(bounds or func.bounds), acquisition_type="EI",
+        initial_design_numdata=5, initial_design_type="latin", exact_feval=True, seed=seed,
+        device=resolve_device(device), dtype=dtype, **kwargs)
+    bo.run_optimization(max_iter=spec_iters if iters is None else iters, eps=-1)
+    regret = np.minimum.accumulate(bo.Y[:, 0]) - float(func.fmin)
+    return RegretRun(regret=regret.tolist(), fx_opt=bo.fx_opt, evaluations=len(bo.Y),
+                     fit_failed=bo._fit_failed, seconds=dict(bo.seconds), bo=bo)
+
+
+def bench_function(x):
+    """The bench recipe's function without its noise (bench.py:82-83)."""
+    x = np.atleast_2d(x)
+    return np.sin(x[:, :1] * 2.0) + 0.3 * np.cos(x.sum(1, keepdims=True))
+
+
+def composite_bo(X, Y, restarts: int = FIT_RESTARTS, steps: int = FIT_STEPS, device=None,
+                 dtype=torch.float32, kernel=None, mean_function=None,
+                 **kwargs) -> BayesianOptimization:
+    """The composite path's optimizer on given data: ``Matern52(ARD) +
+    RBF(active_dims=(0,))``, Gamma(2, 1) priors on ``lengthscale`` and
+    ``variance`` (every part's), a ``Constant`` mean function, LCB from Sobol
+    anchors, the sequential evaluator. ``kernel`` / ``mean_function`` replace
+    the defaults (a fitted model's, say); further ``kwargs`` go to
+    ``BayesianOptimization`` and override these choices. ``device`` None means
+    the card."""
+    device = resolve_device(device)
+    d = X.shape[1]
+    if kernel is None:
+        kernel = (Matern52.create(d, ARD=True, dtype=dtype, device=device)
+                  + RBF.create(1, active_dims=(0,), dtype=dtype, device=device))
+    if mean_function is None:
+        mean_function = Constant.create(d, dtype=dtype, device=device)
+    options = dict(
+        acquisition_type="LCB", evaluator_type="sequential", anchor_points_design="sobol",
+        priors={"lengthscale": GammaPrior(2.0, 1.0), "variance": GammaPrior(2.0, 1.0)},
+        max_iters=steps, optimize_restarts=restarts, seed=0)
+    options.update(kwargs)
+    return BayesianOptimization(
+        f=bench_function, domain=bounds_to_space([BOX] * d), X=X, Y=Y, kernel=kernel,
+        mean_function=mean_function, device=device, dtype=dtype, **options)

@@ -402,3 +402,51 @@ def test_blocked_ladder_through_b4_matches_cholesky_ex(cuda):
         f = f.double()
         res = float((f @ f.mT - Ky.double()).abs().max() / Ky.abs().max())
         assert res <= 1024 * 2.0 ** -24, res
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("op", ["add", "prod"])
+def test_composite_kernel_route_matches_plain_route(op, lanes, cuda):
+    """``Add`` / ``Prod`` of two parts that pass the kernel gate, each on its
+    own ``active_dims`` (a strided slice of X): with the kernels on, each part
+    launches B1 (and B2 under autograd; the product's rematerialized build
+    launches B1 again on the way back); values and parameter gradients equal
+    the plain route's, at this file's tolerances."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.kernels import RBF, Matern52
+    from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves, replace_leaves
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    X = (torch.rand(300, 6, generator=gen) * 4 - 2).to(cuda)
+    G = torch.randn(lanes, 300, 300, generator=gen).to(cuda)
+    p1, p2 = _params(cuda, lanes, 4, seed=1), _params(cuda, lanes, 2, seed=2)
+    shape = (lanes,) if lanes > 1 else ()
+    parts = (Matern52(input_dim=4, active_dims=(0, 1, 3, 5), variance=p1[:, 0].reshape(shape),
+                      lengthscale=p1[:, 2:6].reshape(shape + (4,))),
+             RBF(input_dim=2, active_dims=(2, 4), variance=p2[:, 0].reshape(shape),
+                 lengthscale=p2[:, 2].reshape(shape)))
+    kern = parts[0] + parts[1] if op == "add" else parts[0] * parts[1]
+
+    def run(use_kernels):
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = use_kernels
+        try:
+            leaves = [t.clone().requires_grad_(True) for _, t in named_leaves(kern)]
+            K = replace_leaves(kern, leaves).K(X)
+            grads = torch.autograd.grad(torch.sum(K * G), leaves)
+            return K.detach(), grads
+        finally:
+            config.use_cuda_kernels = old
+
+    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    K, grads = run("auto")
+    assert ck.stationary_k_build.launches == (2 if op == "add" else 4)
+    assert ck.stationary_k_backward.launches == 2
+    launches = ck.stationary_k_build.launches
+    K_plain, grads_plain = run(False)
+    assert ck.stationary_k_build.launches == launches  # the plain route launches nothing
+    assert K.shape == ((lanes, 300, 300) if lanes > 1 else (300, 300))
+    torch.testing.assert_close(K, K_plain, rtol=2e-5, atol=2e-6)
+    for a, b in zip(grads, grads_plain):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+    assert torch.equal(K, K.mT)

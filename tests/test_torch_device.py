@@ -5,8 +5,16 @@ import pytest
 import torch
 
 from gaussian_process_optimization_tpu_torch import convert, workload
+from gaussian_process_optimization_tpu_torch.bo import (BayesianOptimization,
+                                                        ModularBayesianOptimization)
+from gaussian_process_optimization_tpu_torch.bo.acquisitions import AcquisitionEI
+from gaussian_process_optimization_tpu_torch.bo.cost import CostModel
+from gaussian_process_optimization_tpu_torch.bo.evaluators import Sequential
+from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
+from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
 from gaussian_process_optimization_tpu_torch.config import resolve_device
-from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52, RatQuad
+from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52, RatQuad, Sinc
+from gaussian_process_optimization_tpu_torch.models import mean_functions
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 
@@ -20,8 +28,39 @@ def _leaves():
     return convert.leaves_of(workload.make_model(X, Y, device="cpu"))
 
 
+def _modular(**kw):
+    """The modular API builds on its surrogate's device."""
+    space = DesignSpace(workload.THESIS_DOMAIN)
+    model = GPModel(max_iters=0, **kw)
+    acq = AcquisitionEI(model, space, AcquisitionOptimizer(space))
+    X, Y = _data()
+    return ModularBayesianOptimization(model, space, None, acq, Sequential(acq), X, Y)
+
+
+def _timed_bo(**kw):
+    """The one-stop API with an 'evaluation_time' cost: a second surrogate."""
+    X, Y = _data()
+    return BayesianOptimization(f=None, domain=workload.THESIS_DOMAIN, X=X, Y=Y,
+                                cost_withGradients="evaluation_time", max_iters=0, **kw)
+
+
 # name -> a call of the entry point; ``**kw`` carries the device, if any
 ENTRY_POINTS = {
+    "regret_run": lambda **kw: workload.regret_run(
+        "forrester", 0, iters=0, max_iters=0, **kw).bo.model.device,
+    "composite_bo": lambda **kw: workload.composite_bo(
+        *workload.bench_data(n=12), steps=0, **kw).model.device,
+    "CostModel": lambda **kw: CostModel("evaluation_time", **kw).cost_model.device,
+    "BayesianOptimization.cost": lambda **kw: _timed_bo(**kw).cost.cost_model.device,
+    "ModularBayesianOptimization": lambda **kw: _modular(**kw).model.device,
+    "Sinc.create": lambda **kw: Sinc.create(3, **kw).variance.device,
+    "Constant.create": lambda **kw: mean_functions.Constant.create(3, **kw).C.device,
+    "LinearMapping.create": lambda **kw: mean_functions.LinearMapping.create(3, **kw).A.device,
+    "MLPMapping.create": lambda **kw: mean_functions.MLPMapping.create(3, **kw).W1.device,
+    "KernelMapping.create": lambda **kw: mean_functions.KernelMapping.create(
+        3, 1, [[0.0, 0.0, 0.0]], **kw).kern.variance.device,
+    "PiecewiseLinear.create": lambda **kw: mean_functions.PiecewiseLinear.create(
+        [0.0, 1.0], [0.0, 1.0], **kw).values.device,
     "make_model": lambda **kw: workload.make_model(*_data(), **kw).X.device,
     "thesis_bo": lambda **kw: workload.thesis_bo(*_data(), steps=0, **kw).model.device,
     "GPRegression.create": lambda **kw: GPRegression.create(*_data(), **kw).X.device,
