@@ -59,7 +59,23 @@ Phases, each printing its own lines:
                 start gradient against float64 on the card, the two suggestions in
                 the box and distinct; then one Thompson batch, one random batch and
                 one argmax by the host optimizer under a cost, each timed;
-  8. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
+  8. surrogates — GPyOpt's other surrogates and acquisitions at full width, float32
+                on the card, through their entry points with no device given (run
+                before leg A): GP_MCMC + EI_MCMC at GPyOpt's HMC defaults on the main
+                data (accept rate > 0, per-sample predictions and EI_MCMC at the
+                argmax against float64 on the same samples, B1-B3 launched) and a
+                local-penalization batch of 3 over LCB_MCMC; ES_EPMGP and ES on phase
+                4's fitted model (p_min normalized, EPMGP in f32 against f64 on the
+                same mu and Sigma); the VarDTC bound at N=50 000, D=2, M=256 against
+                float64, the FITC, DTC and PEP bounds, a 50-step fit (the bound does
+                not fall, 5 predictions near the truth, B2's row pass launched with
+                dX at Kmn's 256 x 50 000), and sparseGP through BayesianOptimization;
+                warpedGP and input_warped_GP (50 fit steps, -LML against float64 on
+                the card and on the CPU at the fitted point, with a control the
+                limit must catch) and RF at N=256. Phase 3 also holds B1 and B2 at
+                Kmn's 256 x 50 000 (B2's dZ there too, a pass the sparse fit does
+                not run) and B1 at the MCMC surrogate's 10 x 4096 x 4096;
+  9. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -396,6 +412,13 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
           f"0.5 * (K + K^T), {sym:.4f} ms forward and as much again on G in the backward")
     del G, Gs
 
+    # The surrogates' new shapes (phase 8). The sparse bound's Kmn = K(Z, X) at
+    # M = 256 inducing inputs by N = 50 000 points (D = 2, RBF): B1, and B2 with
+    # every output, the inducing inputs' gradient being the row pass's dX; and
+    # B1 on the MCMC surrogate's S = 10 lanes of K(X, X) at 4096 (RBF).
+    rows["B1"]["max_abs_err"] = max(rows["B1"]["max_abs_err"],
+                                    _surrogate_shapes(dev, X, gen))
+
     # B3 and B4 on blocks of nb = 256, each beside the one PyTorch call that
     # computes the same function, at both shapes its paths give it. Each lane
     # reads the lower triangle of one block (both functions use nothing else),
@@ -411,11 +434,12 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
               f"call ({lib_ms / ms:.2f}x)")
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bound}
 
-    # B3: triangular-inverse blocks: G = 80 (fit backward), 16 (posterior).
-    # These inputs are well conditioned; phase_tri_inv_on_main_path repeats the
-    # check on the diagonal blocks of the main path's own Cholesky factor.
+    # B3: triangular-inverse blocks: G = 80 (fit backward), 16 (posterior), 160
+    # (the MCMC surrogate's 10-lane posterior). These inputs are well
+    # conditioned; phase_tri_inv_on_main_path repeats the check on the diagonal
+    # blocks of the main path's own Cholesky factor.
     errs = []
-    for g in (80, 16):
+    for g in (80, 16, 160):
         A = torch.randn(g, 256, 256, generator=gen, device=dev)
         L = torch.linalg.cholesky(A @ A.mT + 256 * torch.eye(256, device=dev)).contiguous()
         got = cl.tri_inv_blocks(L)
@@ -475,6 +499,63 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
     for route, ms in times.items():
         print(f"# full factorization 5x{n}x{n} f32, {route}: {ms:.4f} ms")
     return rows
+
+
+def _rbf_rows(dev, lanes, gen):
+    """(lanes, 8) isotropic RBF params rows [variance, 0, lengthscale, 0...]."""
+    row = torch.zeros(lanes, 8, device=dev)
+    row[:, 0] = 0.5 + torch.rand(lanes, generator=gen, device=dev)
+    row[:, 2] = 0.7 + torch.rand(lanes, generator=gen, device=dev)
+    return row
+
+
+def _surrogate_shapes(dev, X, gen) -> float:
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+
+    errs = []
+    Zi = (6 * torch.rand(1, 256, 2, generator=gen, device=dev) - 3).contiguous()
+    Xs = (6 * torch.rand(1, 50_000, 2, generator=gen, device=dev) - 3).contiguous()
+    p1 = _rbf_rows(dev, 1, gen)
+    tag = "256x50000"
+    got = ck.stationary_k_build(Zi, Xs, p1, "rbf", False)
+    want = ck.k_build_plain(Zi, Xs, p1, "rbf", False)
+    _close(f"B1 Kmn {tag}", got, want, rtol=2e-5, atol=2e-6)
+    errs.append(_max_err(got, want))
+    ms = _time_ms(lambda: ck.stationary_k_build(Zi, Xs, p1, "rbf", False))
+    plain = _time_ms(lambda: ck.k_build_plain(Zi, Xs, p1, "rbf", False))
+    bound = _bound(_nbytes(Zi, Xs, p1, got), got.numel() * _k_flops(2))
+    print(f"# B1 stationary_k_build Kmn {tag} (D=2, RBF): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    G = (2 * torch.rand(1, 256, 50_000, generator=gen, device=dev) - 1).contiguous()
+    out = ck.stationary_k_backward(Zi, Xs, p1, G, "rbf", False)
+    ref = ck.k_backward_plain(Zi.double(), Xs.double(), p1.double(), G.double(), "rbf", False)
+    for name, a, w in zip(("dparams", "dX (the inducing inputs' gradient)",
+                           "dZ (the data's, off the sparse fit's path)"), out, ref):
+        _close(f"B2 {name} Kmn {tag}", a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+    ms = _time_ms(lambda: ck.stationary_k_backward(Zi, Xs, p1, G, "rbf", False, True, False,
+                                                   True))
+    plain = _time_ms(lambda: ck.k_backward_plain(Zi, Xs, p1, G, "rbf", False, True, False,
+                                                 True))
+    bound = _bound(_nbytes(Zi, Xs, p1, G, out[0], out[1]), G.numel() * _k_bwd_flops(2))
+    print(f"# B2 stationary_k_backward Kmn {tag} (parameter gradients + dX, what the sparse "
+          f"fit asks for): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    del got, want, G, out, ref
+
+    p10 = _rbf_rows(dev, 10, gen)
+    tag = "10x4096x4096"
+    got = ck.stationary_k_build(X, X, p10, "rbf", False)
+    want = ck.k_build_plain(X, X, p10, "rbf", False)
+    _close(f"B1 {tag} (RBF)", got, want, rtol=2e-5, atol=2e-6)
+    errs.append(_max_err(got, want))
+    del want
+    ms = _time_ms(lambda: ck.stationary_k_build(X, X, p10, "rbf", False), calls=5)
+    plain = _time_ms(lambda: ck.k_build_plain(X, X, p10, "rbf", False), calls=5)
+    bound = _bound(_nbytes(X, p10, got), got.numel() * _k_flops(X.shape[-1]))
+    print(f"# B1 stationary_k_build {tag} (RBF, the MCMC surrogate's S lanes): kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
+    return max(errs)
 
 
 def _run_main_path(dev, seed):
@@ -641,7 +722,7 @@ def phase_main(dev):
     if fit_grad_rel > GRAD_TERMS_LIMIT:
         raise AssertionError("main path: the float32 gradient at the fitted point "
                              "disagrees with float64 beyond its terms' rounding")
-    return launches, fit_s, acq_s, post.L
+    return launches, fitted, post
 
 
 # The f32 thesis -LML against float64 on the matrix the f32 factor does
@@ -791,9 +872,10 @@ def _bench_cost(x):
 
 
 # The protocol runs hartmann6 for 30 iterations; a refit at these sizes costs
-# 12-19 s of host time on the card (every lane runs its 1000 L-BFGS steps), so
-# the smoke stops after 20 and reads the stored runs at the same evaluation.
-HARTMANN6_ITERS = 20
+# 12-21 s of host time on the card (every lane runs its 1000 L-BFGS steps), so
+# the smoke stops after 10, beside branin's 15, and reads the stored runs at
+# the same evaluation.
+HARTMANN6_ITERS = 10
 
 _LOOP_CHILD = """
 import json, sys, time
@@ -981,6 +1063,344 @@ def phase_composite(dev):
     return launches
 
 
+def _counts():
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+
+    return {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
+            "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+
+
+def _zero_counts():
+    for fn in _counts().values():
+        fn.launches = 0
+    b2 = _counts()["B2"]
+    b2.launches_dx = b2.launches_dz = 0
+
+
+def _read_counts():
+    out = {k: fn.launches for k, fn in _counts().items()}
+    b2 = _counts()["B2"]
+    out["B2 dX"], out["B2 dZ"] = b2.launches_dx, b2.launches_dz
+    return out
+
+
+def _in_box(name, x, lo=-2.0, hi=2.0):
+    x = torch.as_tensor(x)
+    if not bool(torch.isfinite(x).all()) or not bool(((x >= lo) & (x <= hi)).all()):
+        raise AssertionError(f"{name}: suggestion {x.tolist()} outside the box")
+
+
+def _rel(a, b) -> float:
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# Phase 8's limits (stated with the leg that checks them)
+MCMC_PREDICT_LIMIT = 1e-3     # per-sample means and stds, f32 vs f64, same samples
+MCMC_EI_LIMIT = 1e-2          # -EI_MCMC at the argmax, f32 vs f64
+LOGP_SUM_LIMIT = 1e-4         # |logsumexp(logP)| of EPMGP's p_min
+LOGP_F32_LIMIT = 1e-3         # EPMGP logP, f32 vs f64 on the same mu and Sigma (absolute)
+# the VarDTC bound, f32 vs f64 at the same parameters: Kmm's condition number
+# (4e7) is above float32's 1 / eps, and the JAX package's own float32 bound at
+# this configuration is 2.58e-4 from its float64 one, the port's 2.43e-4 (CPU,
+# tests/test_torch_sparse.py::test_f32_bound_error_is_the_references)
+SPARSE_BOUND_LIMIT = 1e-3
+SPARSE_PREDICT_LIMIT = 0.05   # |prediction - truth| at 5 points after the fit
+# warped -LML at the fitted parameters, f32 vs f64 (relative), per model. The
+# leg also reads it through the plain K on the card and on the CPU at the same
+# leaves, and a control each limit must catch: the card's float32 -LML with
+# what the warp reads (the targets, or the inputs) off by WARPED_CONTROL_SHIFT
+# relative, a random sign per row. warpedGP's fitted Ky (variance 11.2, noise
+# 5.6e-4, N = 4096) has cond ~8e7, past float32's 1 / eps, and its -LML (~ -8e2)
+# is a small difference of terms ~1e4: the sound readings are 9.50e-3 through
+# B1 / B2, 3.12e-3 through the plain K, 2.59e-3 on the CPU, and the control
+# 2.73e-2, so its limit sits at 2e-2. input_warped_GP reads 6.71e-4, 6.78e-4
+# and 1.56e-5, its control 1.25e-1: the limit stays 1e-3. (NVIDIA H100 80GB
+# HBM3, 700 W; the readings this script prints, PERF.md section 6.)
+WARPED_LML_LIMIT = {"warpedGP": 2e-2, "input_warped_GP": 1e-3}
+WARPED_CONTROL_SHIFT = 1e-2
+
+
+# The MCMC leg's leapfrog step. GPyOpt's 0.1 is stable only while 0.1 times the
+# square root of the potential's largest Hessian eigenvalue at the fitted point
+# stays under 2, which on the bench's data holds to N ~ 300: the product reads
+# 0.35, 1.57 and 6.18 at N = 64, 256 and 1024 (float64, CPU) and 12.6 at N =
+# 4096 (float32, CPU), where every proposal is rejected, in the JAX package as
+# in the port (both accept 0.00 at N = 1024). 0.005 puts it at 0.63; the other
+# settings stay GPyOpt's.
+MCMC_STEP = 0.005
+
+
+def _leg_mcmc(dev, X, Y):
+    """GP_MCMC with EI_MCMC at GPyOpt's defaults but the leapfrog step
+    (``MCMC_STEP``) on the main data; then a local-penalization batch of 3 over
+    LCB_MCMC on the same samples."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.bo.acquisitions import AcquisitionLP
+    from gaussian_process_optimization_tpu_torch.bo.acquisitions_mcmc import (
+        AcquisitionEI_MCMC, AcquisitionLCB_MCMC)
+    from gaussian_process_optimization_tpu_torch.bo.evaluators import LocalPenalization
+    from gaussian_process_optimization_tpu_torch.models.mcmc_bo_model import GPModel_MCMC
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    _zero_counts()
+    bo = workload.surrogate_bo(X, Y, "GP_MCMC", "EI_MCMC", step_size=MCMC_STEP)
+    it = workload.surrogate_iteration(bo)
+    launches = _read_counts()
+    model = bo.model
+    print(f"# surrogates, MCMC (N={len(X)}, D={X.shape[1]}, GP_MCMC + EI_MCMC, n_samples 10, "
+          f"n_burnin 100, interval 10, step {MCMC_STEP} (GPyOpt's 0.1 rejects every proposal "
+          f"at this N), 20 leapfrog steps, {model.dtype} on "
+          f"{model.device.type}): fit {it.seconds['fit']:.3f} s, HMC {it.seconds['hmc']:.3f} s "
+          f"(200 steps), S-lane posterior {it.seconds['posterior']:.3f} s, argmax "
+          f"{it.seconds['argmax']:.3f} s; accept rate {model.accept_rate:.3f}; launches "
+          f"{launches}; suggestion {it.batch.tolist()}")
+    if model.device.type != dev.type or model.dtype != torch.float32:
+        raise AssertionError(f"MCMC: built on {model.device} in {model.dtype}")
+    if not model.accept_rate > 0:
+        raise AssertionError("MCMC: no HMC proposal was accepted")
+    _in_box("MCMC", it.batch)
+    for k in ("B1", "B2", "B3"):
+        if launches[k] <= 0:
+            raise AssertionError(f"MCMC: kernel {k} was never launched")
+
+    # the same kept samples in float64 on the card
+    m64 = GPModel_MCMC(device=dev, dtype=torch.float64, n_samples=model.n_samples)
+    m64.set_samples(tree_map(lambda t: t.double(), model.model), model.hmc_samples)
+    Xt = np.random.default_rng(1).uniform(-2, 2, (200, X.shape[1]))
+    pred = [_rel(np.stack(a), np.stack(b)) for a, b in zip(model.predict(Xt), m64.predict(Xt))]
+    ei32 = float(bo.acquisition._compute_acq(it.batch)[0, 0])
+    ei64 = float(AcquisitionEI_MCMC(m64, bo.space)._compute_acq(it.batch)[0, 0])
+    ei_rel = abs(ei32 - ei64) / max(abs(ei64), 1e-12)
+    print(f"# surrogates, MCMC f32 vs f64 on the same samples: means rel {pred[0]:.2e}, stds "
+          f"rel {pred[1]:.2e} (limit {MCMC_PREDICT_LIMIT:g}); EI_MCMC at the argmax "
+          f"{ei32:.6g} vs {ei64:.6g} (rel {ei_rel:.2e}, limit {MCMC_EI_LIMIT:g})")
+    if max(pred) > MCMC_PREDICT_LIMIT or ei_rel > MCMC_EI_LIMIT:
+        raise AssertionError("MCMC: the float32 run disagrees with float64")
+    del m64
+
+    _zero_counts()
+    opt = bo.acquisition_optimizer
+    lp = AcquisitionLP(model, bo.space, opt, AcquisitionLCB_MCMC(model, bo.space, opt))
+    evaluator = LocalPenalization(lp, 3)
+    t0 = time.perf_counter()
+    batch = evaluator.compute_batch()
+    seconds = time.perf_counter() - t0
+    lp_launches = _read_counts()
+    print(f"# surrogates, MCMC: local-penalization batch of 3 over LCB_MCMC on the same "
+          f"samples {seconds:.3f} s (estimate_L {evaluator.seconds['estimate_L']:.3f} s, "
+          f"argmaxes {[round(a, 3) for a in evaluator.seconds['argmax']]} s); launches "
+          f"{lp_launches}; batch {batch.tolist()}")
+    _in_box("MCMC LP batch", batch)
+    if batch.shape != (3, X.shape[1]) or len({tuple(r) for r in batch}) != 3:
+        raise AssertionError(f"MCMC LP batch {batch}")
+    return {k: launches[k] + lp_launches[k] for k in launches}
+
+
+def _leg_entropy_search(fitted, post):
+    """ES_EPMGP and ES on the main path's fitted model (no refit)."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.bo.epmgp import joint_min
+
+    total = {}
+    for name in ("ES_EPMGP", "ES"):
+        _zero_counts()
+        r = workload.entropy_search_argmax(fitted, name, posterior=post)
+        launches = _read_counts()
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        print(f"# surrogates, {name} (main path's fitted model, 50 representers, 50 burn-in "
+              f"steps, 1000-candidate sweep): representers {r.seconds['representers']:.3f} s, "
+              f"argmax {r.seconds['argmax']:.3f} s; launches {launches}; argmax "
+              f"{r.x.tolist()}, value {float(r.f[0, 0]):.6g}")
+        _in_box(name, r.x)
+        if name != "ES_EPMGP":
+            continue
+        Z, logP = r.acquisition._state[:2]
+        lse = float(torch.logsumexp(logP.double(), 0))
+        gp = fitted
+        with torch.no_grad():
+            mu, cov = gp._raw_predict(Z, full_cov=True, posterior=post)
+            cov = cov + gp.likelihood_variance * torch.eye(Z.shape[0], device=cov.device)
+            lp32 = joint_min(mu[:, 0], cov)
+            lp64 = joint_min(mu[:, 0].double(), cov.double())
+        err = float((lp32.double() - lp64).abs().max())
+        print(f"# surrogates, ES_EPMGP: logsumexp(logP) {lse:.3e} (limit {LOGP_SUM_LIMIT:g}); "
+              f"logP f32 vs f64 on the same mu and Sigma: max abs {err:.3e} (limit "
+              f"{LOGP_F32_LIMIT:g})")
+        if abs(lse) > LOGP_SUM_LIMIT or err > LOGP_F32_LIMIT:
+            raise AssertionError("ES_EPMGP: p_min is not normalized or float32 disagrees")
+    return total
+
+
+def _leg_sparse(X, Y):
+    """BASELINE.md configuration 4: the VarDTC bound at N = 50 000, D = 2,
+    M = 256 (examples/large_scale_sparse.py), a 1-restart 50-step fit, 5
+    predictions; then sparseGP through BayesianOptimization on the main data."""
+    import dataclasses
+
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    Xs, Ys = workload.sparse_data()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    model = workload.sparse_model(Xs, Ys)
+    with torch.no_grad():
+        b32 = float(model.log_marginal_likelihood())
+        b64 = float(tree_map(lambda t: t.double(), model).log_marginal_likelihood())
+        others = {inf: float(dataclasses.replace(model, inference=inf).log_marginal_likelihood())
+                  for inf in ("fitc", "dtc", "pep")}
+    fitted, res, fit_s = workload.sparse_fit(model, steps=50)
+    launches = _read_counts()
+    with torch.no_grad():
+        b_fit = float(fitted.log_marginal_likelihood())
+        Xt = np.random.default_rng(0).uniform(-3, 3, size=(5, 2))
+        mu, _ = fitted.predict(torch.as_tensor(Xt, dtype=fitted.X.dtype, device=fitted.X.device))
+    err = np.abs(mu.cpu().numpy() - workload.sparse_truth(Xt)).max()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = abs(b32 - b64) / abs(b64)
+    # Kmm = K(Z, Z) passes one tensor as both arguments, so its backward runs
+    # the row pass with dX and the column (dZ) pass; Kmn = K(Z, X) asks only
+    # for the row pass with dX (X is data). The dX launches beyond the dZ ones
+    # are Kmn's.
+    kmn_rows = launches["B2 dX"] - launches["B2 dZ"]
+    print(f"# surrogates, sparse (N=50000, D=2, M=256, RBF, noise 0.05, {model.X.dtype}): "
+          f"VarDTC bound {b32:.3f} vs f64 {b64:.3f} (rel {rel:.2e}, limit "
+          f"{SPARSE_BOUND_LIMIT:g}); FITC {others['fitc']:.3f}, DTC {others['dtc']:.3f}, PEP "
+          f"{others['pep']:.3f}; fit (1 restart, 50 steps) {fit_s:.3f} s, {res.num_ls.tolist()} "
+          f"line-search trials, bound {b32:.3f} -> {b_fit:.3f}; max |prediction - truth| at 5 "
+          f"points {err:.4f} (limit {SPARSE_PREDICT_LIMIT:g}); peak memory {peak:.2f} GiB; "
+          f"launches {launches}, of which Kmn {kmn_rows} row passes with dX at 256 x 50 000")
+    if rel > SPARSE_BOUND_LIMIT:
+        raise AssertionError("sparse: the float32 bound disagrees with float64")
+    if not b_fit >= b32:
+        raise AssertionError("sparse: the fit lowered the bound")
+    if not err <= SPARSE_PREDICT_LIMIT:
+        raise AssertionError("sparse: the predictions miss the truth")
+    if launches["B1"] <= 0 or kmn_rows <= 0:
+        raise AssertionError("sparse: B1, or B2's row pass at Kmn, was never launched")
+
+    _zero_counts()
+    it = workload.surrogate_iteration(workload.surrogate_bo(X, Y, "sparseGP", num_inducing=256))
+    bo_launches = _read_counts()
+    print(f"# surrogates, sparseGP + EI on the main data (M=256, 5 restarts x 1000 steps): fit "
+          f"{it.seconds['fit']:.3f} s, argmax {it.seconds['argmax']:.3f} s; launches "
+          f"{bo_launches}; suggestion {it.batch.tolist()}")
+    _in_box("sparseGP", it.batch)
+    return {k: launches[k] + bo_launches[k] for k in launches}
+
+
+# The warped fits stop after this many L-BFGS steps (GPyOpt's 1000 otherwise):
+# a cut of depth, not of width
+WARPED_STEPS = 50
+
+
+def _warp_input_moved(m, shift):
+    """The warped model with what its warp reads (warpedGP: the targets,
+    input_warped_GP: the inputs) off by ``shift`` relative, the sign random per
+    row (seeded)."""
+    import dataclasses
+
+    field = "Y" if hasattr(m.warp, "fgrad_y") else "X"
+    v = getattr(m.gp, field)
+    gen = torch.Generator(device=v.device).manual_seed(0)
+    sign = torch.randint(0, 2, (v.shape[0], 1), generator=gen, device=v.device) * 2 - 1
+    return dataclasses.replace(m, gp=dataclasses.replace(
+        m.gp, **{field: v * (1.0 + shift * sign.to(v.dtype))}))
+
+
+def _leg_warped_rf(X, Y):
+    """warpedGP and input_warped_GP on the main data; RF at N = 256 (host-only
+    in both packages)."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    from gaussian_process_optimization_tpu_torch.config import config
+
+    total, failed = {}, []
+    for name in ("warpedGP", "input_warped_GP"):
+        _zero_counts()
+        bo = workload.surrogate_bo(X, Y, name, max_iters=WARPED_STEPS)
+        it = workload.surrogate_iteration(bo)
+        launches = _read_counts()
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        m = bo.model.model
+        m64 = tree_map(lambda t: t.double(), m)
+        with torch.no_grad():
+            l32 = float(m.log_marginal_likelihood())
+            l64 = float(m64.log_marginal_likelihood())
+            c32 = float(tree_map(lambda t: t.cpu(), m).log_marginal_likelihood())
+            c64 = float(tree_map(lambda t: t.cpu(), m64).log_marginal_likelihood())
+            control = float(_warp_input_moved(m, WARPED_CONTROL_SHIFT).log_marginal_likelihood())
+            gz = m._warped_gp() if hasattr(m.warp, "fgrad_y") else m._warped()
+            k32 = gz.kern.K(gz.X).double()
+            config.use_cuda_kernels = False
+            try:
+                p32 = float(m.log_marginal_likelihood())
+                kp32 = gz.kern.K(gz.X).double()
+            finally:
+                config.use_cuda_kernels = "auto"
+            g64 = tree_map(lambda t: t.double(), gz)
+            k64 = g64.kern.K(g64.X)
+            var = float(gz.kern.variance.max())
+            k_err = [(float((k - k64).abs().mean()) / var, float((k - k64).mean()) / var)
+                     for k in (k32, kp32)]
+            del gz, g64, k32, kp32, k64
+        limit = WARPED_LML_LIMIT[name]
+        rel, rel_cpu = abs(l32 - l64) / abs(l64), abs(c32 - c64) / abs(c64)
+        rel_control = abs(control - l64) / abs(l64)
+        gp = m.gp
+        print(f"# surrogates, {name} + EI on the main data ({WARPED_STEPS} L-BFGS steps of 5 "
+              f"restarts, cut from 1000): fit {it.seconds['fit']:.3f} s, argmax (host path) "
+              f"{it.seconds['argmax']:.3f} s; -LML f32 {-l32:.4f} vs f64 {-l64:.4f} (rel "
+              f"{rel:.2e}, limit {limit:g}); launches {launches}; suggestion "
+              f"{it.batch.tolist()}")
+        print(f"# surrogates, {name} at the card's fitted point (kernel variance "
+              f"{float(gp.kern.variance.max()):.6g}, noise {float(gp.likelihood_variance):.6g}): "
+              f"-LML on the CPU f32 {-c32:.4f} vs f64 {-c64:.4f} (rel {rel_cpu:.2e}); card f32 "
+              f"vs CPU f32 rel {abs(l32 - c32) / abs(c64):.2e}; card f32 with the plain K "
+              f"(no B1 / B2) {-p32:.4f} (rel {abs(p32 - l64) / abs(l64):.2e}); control, the warp's "
+              f"{'targets' if hasattr(m.warp, 'fgrad_y') else 'inputs'} off by "
+              f"{WARPED_CONTROL_SHIFT:g}: -LML f32 {-control:.4f} (rel {rel_control:.2e} from "
+              f"f64, must exceed the limit)")
+        print(f"# surrogates, {name}: K at the fitted point against float64, mean |dK| / "
+              f"variance (mean dK / variance): B1 {k_err[0][0]:.3e} ({k_err[0][1]:.2e}), plain "
+              f"{k_err[1][0]:.3e} ({k_err[1][1]:.2e})")
+        _in_box(name, it.batch)
+        if rel > limit:
+            failed.append(f"{name}: the float32 LML disagrees with float64")
+        if rel_control <= limit:
+            failed.append(f"{name}: the limit does not catch the control")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    it = workload.surrogate_iteration(workload.surrogate_bo(X[:256], Y[:256], "RF"))
+    print(f"# surrogates, RF + EI at N=256 (host): fit {it.seconds['fit']:.3f} s, argmax "
+          f"{it.seconds['argmax']:.3f} s; suggestion {it.batch.tolist()}")
+    _in_box("RF", it.batch)
+    return total
+
+
+def phase_surrogates(dev, fitted, post):
+    """Phase 8: GPyOpt's other surrogates and acquisitions at full width, float32
+    on the card, through their own entry points with no device given. Each leg
+    zeroes the launch counts just before it and reads them just after; the sum
+    is returned."""
+    from gaussian_process_optimization_tpu_torch import workload
+
+    X, Y = workload.bench_data()
+    t0 = time.perf_counter()
+    legs = [_leg_mcmc(dev, X, Y), _leg_entropy_search(fitted, post), _leg_sparse(X, Y),
+            _leg_warped_rf(X, Y)]
+    total = {k: sum(leg.get(k, 0) for leg in legs) for k in legs[0]}
+    print(f"# surrogates: phase 8 took {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
@@ -988,15 +1408,18 @@ def main():
     phase_default_device()
     phase_build()
     rows = phase_kernels(dev)
-    launches, _, _, L = phase_main(dev)
-    rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], phase_tri_inv_on_main_path(L))
-    del L
+    launches, fitted, post = phase_main(dev)
+    rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"],
+                                    phase_tri_inv_on_main_path(post.L))
     thesis_launches, b4_err = phase_thesis(dev)
     rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_err)
     composite_launches = phase_composite(dev)
+    surrogate_launches = phase_surrogates(dev, fitted, post)
+    del fitted, post
     phase_loop_protocol()
-    # B1 and B2 run on the main and the composite path, B4 on the thesis path,
-    # B3 on all three; "launches" is the main path's count (B4: the thesis path's)
+    # B1 and B2 run on the main, composite and surrogate paths, B4 on the thesis
+    # path, B3 on all but the sparse leg; "launches" is the main path's count
+    # (B4: the thesis path's)
     launches["B4"] = thesis_launches["B4"]
     sources = {
         "B1": ("stationary_k_build", "gaussian_process_optimization_tpu_torch/csrc/stationary_k.cu",
@@ -1016,6 +1439,7 @@ def main():
                         "replaces": replaces, "launches": launches[key],
                         "launches_thesis": thesis_launches[key],
                         "launches_composite": composite_launches[key],
+                        "launches_surrogates": surrogate_launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_us": r["bound_us"], "bound_by": r["bound_by"],

@@ -14,6 +14,12 @@ Two faces per acquisition, as in the reference:
   -(raw * indicator) / cost`` (base.py:33) and
   ``acquisition_function_withGradients`` (:42), which the host optimizers
   (``optimizer.optimize_host``) call one point at a time.
+
+A surrogate without tensor state (the random forest, the warped GPs: no
+``device_state``) has only the host face: ``supports_device`` is false, the raw
+acquisition comes from its numpy ``predict`` (EI.py:32), its gradient by the
+chain rule through ``predict_withGradients`` (EI.py:42-51), and the host
+optimizer maximizes it.
 """
 from __future__ import annotations
 
@@ -85,6 +91,11 @@ class AcquisitionBase:
     def has_cost(self):
         return self.cost_withGradients is not constant_cost_withGradients
 
+    @property
+    def supports_device(self):
+        """Whether the surrogate has tensor state for :meth:`device_args`."""
+        return hasattr(self.model, "device_state")
+
     # ------------------------------------------------------------- tensor code
     def host_raw_acq(self, m, s, fmin):
         """The raw acquisition from the predictive mean and std (tensors)."""
@@ -109,12 +120,31 @@ class AcquisitionBase:
 
     # ------------------------------------------------------------- host API
     def _compute_acq(self, x):
+        if not self.supports_device:
+            m, s = self.model.predict(np.atleast_2d(x))
+            t = [torch.as_tensor(np.asarray(a, dtype=float)) for a in (m, s)]
+            return self.host_raw_acq(*t, self.model.get_fmin()).numpy()
+        return self._compute_acq_device(x)
+
+    def _compute_acq_device(self, x):
         gp, post, fmin, state = self.device_args()
         with torch.no_grad():
             f = self.pure_raw_acq(gp, post, fmin, state, self._tensor(x, gp))
         return f.cpu().numpy().astype(float)
 
     def _compute_acq_withGradients(self, x):
+        if not self.supports_device:
+            # the chain rule through the surrogate's (m, s) and their gradients
+            m, s, dmdx, dsdx = (torch.as_tensor(np.asarray(a, dtype=float)) for a in
+                                self.model.predict_withGradients(np.atleast_2d(x)))
+            with torch.enable_grad():
+                m, s = m.requires_grad_(True), s.requires_grad_(True)
+                f = self.host_raw_acq(m, s, self.model.get_fmin())
+                dfdm, dfds = torch.autograd.grad(f.sum(), (m, s))
+            return f.detach().numpy(), (dfdm * dmdx + dfds * dsdx).numpy()
+        return self._compute_acq_withGradients_device(x)
+
+    def _compute_acq_withGradients_device(self, x):
         gp, post, fmin, state = self.device_args()
         with torch.enable_grad():
             X = self._tensor(x, gp).requires_grad_(True)
@@ -201,7 +231,12 @@ class AcquisitionLP(AcquisitionBase):
         super().__init__(model, space, optimizer)
         self.acq = acquisition
         self.transform = transform.lower()
-        if isinstance(acquisition, AcquisitionLCB) and self.transform == "none":
+        # LCB is sign-indefinite (LP.py:33-34 maps AcquisitionLCB and
+        # AcquisitionLCB_MCMC, the latter told by name: it lives in a module
+        # that imports this one)
+        if self.transform == "none" and (
+                isinstance(acquisition, AcquisitionLCB)
+                or type(acquisition).__name__ == "AcquisitionLCB_MCMC"):
             self.transform = "softplus"
         self.X_batch = None
         self.r_x0 = None
@@ -218,6 +253,10 @@ class AcquisitionLP(AcquisitionBase):
             self.r_x0, self.s_x0 = None, None
             return
         m, s_pred = self.model.predict(np.atleast_2d(X_batch))
+        if isinstance(m, list):
+            # an MCMC surrogate's per-sample lists: the radii come from the
+            # sample-averaged mean and std (acquisitions.py:266-272)
+            m, s_pred = np.mean(np.stack(m), axis=0), np.mean(np.stack(s_pred), axis=0)
         s = np.sqrt(np.maximum(np.square(s_pred), 1e-16))
         self.r_x0 = ((m - Min) / L).flatten()
         self.s_x0 = (s / L).flatten()
@@ -257,8 +296,8 @@ class AcquisitionLP(AcquisitionBase):
 
     # GPyOpt's LP returns the penalized log-space value directly
     def acquisition_function(self, x):
-        return -self._compute_acq(x)
+        return -self._compute_acq_device(x)
 
     def acquisition_function_withGradients(self, x):
-        f, df = self._compute_acq_withGradients(x)
+        f, df = self._compute_acq_withGradients_device(x)
         return -f, -df

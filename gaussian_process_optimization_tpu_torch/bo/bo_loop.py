@@ -125,14 +125,20 @@ class BO:
         X_inmodel = self.space.unzip_inputs(self.X)
         Y_inmodel = np.asarray(normalize_stats(self.Y)) if self.normalize_Y else self.Y
         self.model.updateModel(X_inmodel, Y_inmodel, None, None)
-        if not bool(self.model.posterior.ok):
+        # surrogates without one exact posterior (the MCMC samples, the forest)
+        # are not checked, as in the reference
+        if not self._posterior_ok():
             self.model.updateModel(X_inmodel, Y_inmodel, None, None)
-            if not bool(self.model.posterior.ok):
+            if not self._posterior_ok():
                 print("Warning: surrogate fit failed (non-PD covariance); stopping.")
                 self._fit_failed = True
         self.X_inmodel = X_inmodel
         self.Y_inmodel = Y_inmodel
         self.fit_seconds = time.perf_counter() - t0
+
+    def _posterior_ok(self) -> bool:
+        post = getattr(self.model, "posterior", None)
+        return post is None or post.ok is None or bool(post.ok)
 
     def _compute_next_evaluations(self, pending_zipped_X=None, ignored_zipped_X=None):
         """(bo.py:216-235): context, de-duplication, the evaluator's batch, zipped."""

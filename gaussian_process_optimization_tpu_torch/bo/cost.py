@@ -16,7 +16,7 @@ class CostModel:
     """``device`` and ``dtype`` place the log-cost surrogate; ``device`` None
     means the card, as for the objective's surrogate."""
 
-    def __init__(self, cost_withGradients, device=None, dtype=torch.float64):
+    def __init__(self, cost_withGradients, device=None, dtype=None):
         self.cost_type = cost_withGradients
         if cost_withGradients is None:
             self.cost_withGradients = constant_cost_withGradients

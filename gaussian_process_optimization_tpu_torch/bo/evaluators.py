@@ -5,6 +5,7 @@ batch_thompson.py:10, batch_local_penalization.py:9 with estimate_L:52).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -174,8 +175,13 @@ def estimate_L(model, bounds, seed=0):
     """Lipschitz estimate of the posterior mean (batch_local_penalization.py:52-76):
     max |grad mu| over 500 uniform samples and the training inputs, refined by
     box-bounded L-BFGS (200 steps) from the best of them; L = 10 when it is
-    below 1e-7 (a flat model)."""
-    gp, post = model.model, model.posterior
+    below 1e-7 (a flat model). A surrogate without one posterior (the MCMC
+    model's samples) gives its point-estimate model, factored here
+    (evaluators.py:243-247)."""
+    gp, post = model.model, getattr(model, "posterior", None)
+    if post is None:
+        with torch.no_grad():
+            post = dataclasses.replace(gp, jitter_greedy=False).inference()
     lo = np.asarray([b[0] for b in bounds], dtype=float)
     hi = np.asarray([b[1] for b in bounds], dtype=float)
     rng = np.random.default_rng(seed)

@@ -3,14 +3,14 @@ methods/bayesian_optimization.py:24 ``BayesianOptimization``,
 modular_bayesian_optimization.py:6 ``ModularBayesianOptimization`` and
 util/arguments_manager.py:9 ``ArgumentsManager``).
 
-Ported choices for ``model_type="GP"`` (with the reference author's ``Gower``
-kwarg): acquisitions EI, MPI and LCB; evaluators sequential, random,
-thompson_sampling and local_penalization; acquisition optimizers lbfgs,
-lbfgs_host, DIRECT and CMA; all six initial designs; every cost
-(None, 'evaluation_time', a callable). The other model types, the ``_MCMC``
-acquisitions and entropy search raise ``NotImplementedError`` by name.
-``device`` and ``dtype`` kwargs place the surrogate (on the card in float64 by
-default; ``device="cpu"`` for the CPU); ``mean_function`` and ``priors`` go to
+Every choice of the reference: the model types GP (with the reference author's
+``Gower`` kwarg), sparseGP, GP_MCMC, warpedGP, input_warped_GP and RF; the
+acquisitions EI, MPI, LCB, their ``_MCMC`` versions, ES and ES_EPMGP; evaluators
+sequential, random, thompson_sampling and local_penalization; acquisition
+optimizers lbfgs, lbfgs_host, DIRECT and CMA; all six initial designs; every
+cost (None, 'evaluation_time', a callable).
+``device`` and ``dtype`` kwargs place the surrogate (on the card in float32 by
+default; ``device="cpu"`` for the CPU, in float64 unless ``dtype`` says otherwise); ``mean_function`` and ``priors`` go to
 the surrogate. A kwarg the port does not read raises, so a setting is never
 silently dropped.
 """
@@ -19,9 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, resolve_dtype
 from ..models.bo_models import GPModel
+from ..models.mcmc_bo_model import GPModel_MCMC
+from ..models.rf_model import RFModel
+from ..models.sparse_bo_model import SparseGPModel
+from ..models.warped_bo_model import InputWarpedGPModel, WarpedGPModel
 from .acquisitions import AcquisitionEI, AcquisitionLCB, AcquisitionLP, AcquisitionMPI
+from .acquisitions_mcmc import AcquisitionEI_MCMC, AcquisitionLCB_MCMC, AcquisitionMPI_MCMC
+from .entropy_search import AcquisitionEntropySearch, AcquisitionEntropySearchEPMGP
 from .bo_loop import BO
 from .cost import CostModel
 from .designs import initial_design
@@ -35,14 +41,15 @@ _KWARGS = {
     # the surrogate (arguments_manager.py:80)
     "kernel", "ARD", "Gower", "noise_var", "optimizer", "max_iters", "optimize_restarts",
     "verbosity_model", "mean_function", "priors", "device", "dtype",
+    # sparseGP's and GP_MCMC's (arguments_manager.py:80-137)
+    "num_inducing", "n_samples", "n_burnin", "subsample_interval", "step_size",
+    "leapfrog_steps",
     # the acquisition (:42) and LP's transform
     "acquisition_jitter", "acquisition_weight", "transform",
     # the acquisition optimizer's anchors (bayesian_optimization.py:144-158)
     "anchor_points_design", "anchor_points_samples", "anchor_points_num",
     "objective_name",
 }
-_OTHER_MODELS = ("sparseGP", "GP_MCMC", "warpedGP", "input_warped_GP", "RF")
-_OTHER_ACQUISITIONS = ("EI_MCMC", "MPI_MCMC", "LCB_MCMC", "ES", "ES_EPMGP")
 
 
 class ArgumentsManager:
@@ -55,25 +62,39 @@ class ArgumentsManager:
         self.kwargs = kwargs
 
     def model_creator(self, model_type, exact_feval, space, seed=0):
-        """(arguments_manager.py:80)"""
-        if model_type in _OTHER_MODELS:
-            raise NotImplementedError(f"model type {model_type!r} is not ported")
-        if model_type != "GP":
-            raise InvalidConfigError(f"unknown model type {model_type!r}")
+        """(arguments_manager.py:80): 'GP' | 'sparseGP' | 'GP_MCMC' | 'warpedGP' |
+        'input_warped_GP' | 'RF'. ``device`` and ``dtype`` go to every model but
+        the host-only forest."""
         kw = self.kwargs
-        kw_model = {k: kw[k] for k in ("device", "dtype", "mean_function", "priors")
-                    if k in kw}
-        return GPModel(kernel=kw.get("kernel"), noise_var=kw.get("noise_var"),
-                       exact_feval=exact_feval, optimizer=kw.get("optimizer", "lbfgs"),
-                       max_iters=kw.get("max_iters", 1000),
-                       optimize_restarts=kw.get("optimize_restarts", 5),
-                       verbose=kw.get("verbosity_model", False),
-                       ARD=kw.get("ARD", False), Gower=kw.get("Gower", False), space=space,
-                       seed=seed, **kw_model)
+        place = {k: kw[k] for k in ("device", "dtype") if k in kw}
+        common = dict(kernel=kw.get("kernel"), noise_var=kw.get("noise_var"),
+                      exact_feval=exact_feval, verbose=kw.get("verbosity_model", False),
+                      seed=seed, **place)
+        fit = dict(optimizer=kw.get("optimizer", "lbfgs"), max_iters=kw.get("max_iters", 1000),
+                   optimize_restarts=kw.get("optimize_restarts", 5), ARD=kw.get("ARD", False))
+        if model_type == "GP":
+            extra = {k: kw[k] for k in ("mean_function", "priors") if k in kw}
+            return GPModel(Gower=kw.get("Gower", False), space=space, **common, **fit, **extra)
+        if model_type == "sparseGP":
+            return SparseGPModel(num_inducing=kw.get("num_inducing", 10), **common, **fit)
+        if model_type == "GP_MCMC":
+            return GPModel_MCMC(n_samples=kw.get("n_samples", 10),
+                                n_burnin=kw.get("n_burnin", 100),
+                                subsample_interval=kw.get("subsample_interval", 10),
+                                step_size=kw.get("step_size", 1e-1),
+                                leapfrog_steps=kw.get("leapfrog_steps", 20), **common)
+        if model_type == "warpedGP":
+            return WarpedGPModel(**common, **fit)
+        if model_type == "input_warped_GP":
+            return InputWarpedGPModel(space, **common, **fit)
+        if model_type == "RF":
+            return RFModel(verbose=common["verbose"])
+        raise InvalidConfigError(f"unknown model type {model_type!r}")
 
     def acquisition_creator(self, acquisition_type, model, space, acquisition_optimizer,
                             cost_withGradients=None):
-        """(arguments_manager.py:42): EI / MPI with jitter 0.01, LCB with weight 2."""
+        """(arguments_manager.py:42): EI / MPI (and their ``_MCMC`` versions) with
+        jitter 0.01, LCB (and LCB_MCMC) with weight 2, ES and ES_EPMGP."""
         acquisition_type = acquisition_type or "EI"
         jitter = self.kwargs.get("acquisition_jitter", 0.01)
         weight = self.kwargs.get("acquisition_weight", 2)
@@ -84,8 +105,20 @@ class ArgumentsManager:
                                   jitter)
         if acquisition_type == "LCB":
             return AcquisitionLCB(model, space, acquisition_optimizer, None, weight)
-        if acquisition_type in _OTHER_ACQUISITIONS:
-            raise NotImplementedError(f"acquisition {acquisition_type!r} is not ported")
+        if acquisition_type == "EI_MCMC":
+            return AcquisitionEI_MCMC(model, space, acquisition_optimizer, cost_withGradients,
+                                      jitter)
+        if acquisition_type == "MPI_MCMC":
+            return AcquisitionMPI_MCMC(model, space, acquisition_optimizer,
+                                       cost_withGradients, jitter)
+        if acquisition_type == "LCB_MCMC":
+            return AcquisitionLCB_MCMC(model, space, acquisition_optimizer, None, weight)
+        if acquisition_type == "ES":
+            return AcquisitionEntropySearch(model, space, acquisition_optimizer,
+                                            cost_withGradients=cost_withGradients)
+        if acquisition_type == "ES_EPMGP":
+            return AcquisitionEntropySearchEPMGP(model, space, acquisition_optimizer,
+                                                 cost_withGradients=cost_withGradients)
         raise InvalidConfigError(f"unknown acquisition type {acquisition_type!r}")
 
     def evaluator_creator(self, evaluator_type, acquisition, batch_size, model, space,
@@ -124,7 +157,7 @@ class BayesianOptimization(BO):
         self.kwargs = kwargs
         args = ArgumentsManager(dict(kwargs, verbosity_model=verbosity_model))
         device = resolve_device(kwargs.get("device"))
-        dtype = kwargs.get("dtype", torch.float64)
+        dtype = resolve_dtype(kwargs.get("dtype"), device)
 
         self.constraints = constraints
         self.space = DesignSpace(domain, constraints)

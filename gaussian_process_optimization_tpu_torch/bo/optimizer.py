@@ -82,8 +82,9 @@ class AcquisitionOptimizer:
 
     def optimize(self, acq, duplicate_manager=None):
         """(x_min (1, model_dim), fx_min (1, 1)) as numpy (:45-79): the device
-        path for 'lbfgs' without a cost, else the host path."""
-        if self.optimizer_name == "lbfgs" and not acq.has_cost:
+        path for 'lbfgs' without a cost on a surrogate with tensor state, else
+        the host path."""
+        if self.optimizer_name == "lbfgs" and not acq.has_cost and acq.supports_device:
             return self._optimize_device(acq, duplicate_manager)
         f_df = acq.acquisition_function_withGradients if acq.analytical_gradient_acq else None
         return self.optimize_host(f=acq.acquisition_function, f_df=f_df,
@@ -147,16 +148,20 @@ class AcquisitionOptimizer:
             scores = np.where(space.indicator_constraints(Xm).flatten() == 1, scores, np.inf)
         anchors = Xm[np.argsort(scores)[:self.num_anchor]]
 
-        # 2) box-bounded L-BFGS, one lane per anchor (context dims collapsed)
+        # 2) box-bounded L-BFGS, one lane per anchor (context dims collapsed);
+        #    an acquisition without gradients (entropy search's argmin counts)
+        #    keeps its anchors: the sweep covers the box
         lo, hi = self._box()
 
         def t(a):
             return torch.as_tensor(a, dtype=gp.X.dtype, device=gp.X.device)
 
-        res = lbfgs.minimize(lambda A: acq.pure_neg_acq(gp, post, fmin, state, A),
-                             t(anchors), lower=t(lo), upper=t(hi), maxiter=self.maxiter,
-                             carry_graph=False)
-        xs = res.x.cpu().numpy()
+        xs = anchors
+        if acq.analytical_gradient_prediction:
+            res = lbfgs.minimize(lambda A: acq.pure_neg_acq(gp, post, fmin, state, A),
+                                 t(anchors), lower=t(lo), upper=t(hi), maxiter=self.maxiter,
+                                 carry_graph=False)
+            xs = res.x.cpu().numpy()
 
         # 3) round, re-apply context, re-score, drop duplicates, select; the
         #    anchors are the fallback

@@ -4,7 +4,8 @@ The numeric floors and the jitter-ladder shape are the reference's. Kernel routi
 mirrors its ``use_pallas`` / ``pallas_tri_inv`` / ``pallas_chol_blocks`` switches:
 ``'auto'`` routes a call into the hand-written CUDA kernels when the tensor it
 gets lies on a CUDA device. :func:`resolve_device` gives every entry point its
-device: the card unless the caller names another.
+device: the card unless the caller names another, and :func:`resolve_dtype` its
+dtype: float32 on the card, float64 on the CPU.
 
 Importing this module pins float32 matmuls to full precision: TF32 keeps ~10
 mantissa bits, and the reference pins its matmuls to full f32 because reduced
@@ -61,6 +62,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: the port runs on the GPU unless asked "
                            "otherwise; pass device='cpu' to build on the CPU")
     return torch.device("cuda")
+
+
+def resolve_dtype(dtype=None, device=None) -> torch.dtype:
+    """The dtype an entry point builds in: ``dtype`` if given, else float32 on
+    a CUDA device (the JAX package's dtype on its accelerator, and the one the
+    CUDA kernels take) and float64 elsewhere (the CPU parity tests' dtype)."""
+    if dtype is not None:
+        return dtype
+    return torch.float32 if torch.device(device).type == "cuda" else torch.float64
 
 
 def kernels_enabled(t: torch.Tensor) -> bool:

@@ -18,6 +18,12 @@ the family, the Gower structure (continuous and discrete columns,
 ``gpy_compat``), a combination's operator with each part's family and
 ``active_dims``, and the mean function's class name. No JAX object is taken or
 made.
+
+The other models' leaves carry the same names under their own prefixes: a
+sparse GP's add ``Z``; a warped GP's are the inner GP's under ``gp.`` and the
+warp's under ``warp.`` (``d a b c`` for the tanh warp; ``a b lo hi`` for the
+input warp). An MCMC surrogate is its point-estimate GP's leaves and the JAX
+model's kept ``hmc_samples``.
 """
 from __future__ import annotations
 
@@ -26,12 +32,16 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .config import resolve_device
+from .config import resolve_device, resolve_dtype
 from .kernels.base import Add, Prod
 from .kernels.gower import Gower
 from .kernels.stationary import FAMILY_CLASSES
 from .models import mean_functions
 from .models.gp import GPRegression
+from .models.mcmc_bo_model import GPModel_MCMC
+from .models.sparse import SparseGPRegression
+from .models.warped import (IdentityWarp, InputWarpedGP, KumarWarp, LogWarp, TanhWarp,
+                            WarpedGP)
 from .utils.tree import named_leaves
 
 _MEAN_FIELDS = {"Constant": ("C",), "LinearMapping": ("A",),
@@ -40,7 +50,7 @@ _MEAN_FIELDS = {"Constant": ("C",), "LinearMapping": ("A",),
 
 def gp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
                    gower: Mapping | None = None, composite: Mapping | None = None,
-                   mean_function: str | None = None, dtype=torch.float64,
+                   mean_function: str | None = None, dtype=None,
                    device=None) -> GPRegression:
     """``gower``: ``{"cont_dims": ..., "disc_dims": ..., "gpy_compat": ...}`` for a
     Gower kernel over a ``family`` base (the BO wrappers' kernel).
@@ -50,6 +60,7 @@ def gp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
     ``mean_function``: ``"Constant"``, ``"LinearMapping"`` or ``"MLPMapping"``
     when the leaves carry one. ``device`` None means the card."""
     device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
 
     def t(key):
         return torch.tensor(np.asarray(leaves[key]), dtype=dtype, device=device)
@@ -96,3 +107,55 @@ def gp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
 def leaves_of(model) -> dict[str, np.ndarray]:
     """The inverse map: leaf path -> numpy array."""
     return {path: t.detach().cpu().numpy() for path, t in named_leaves(model)}
+
+
+def sparse_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "rbf",
+                       inference: str = "vardtc", pep_alpha: float = 0.5, dtype=None,
+                       device=None) -> SparseGPRegression:
+    """A ``SparseGPRegression``: the exact GP's leaves and ``Z``."""
+    gp = gp_from_leaves({k: v for k, v in leaves.items() if k != "Z"}, family,
+                        dtype=dtype, device=device)
+    Z = torch.tensor(np.asarray(leaves["Z"]), dtype=gp.X.dtype, device=gp.X.device)
+    return SparseGPRegression(kern=gp.kern, likelihood_variance=gp.likelihood_variance, Z=Z,
+                              X=gp.X, Y=gp.Y, mask=gp.mask, inference=inference,
+                              pep_alpha=pep_alpha)
+
+
+def _inner_gp(leaves, family, dtype, device):
+    gp = gp_from_leaves({k[3:]: v for k, v in leaves.items() if k.startswith("gp.")}, family,
+                        dtype=dtype, device=device)
+
+    def t(key):
+        return torch.tensor(np.asarray(leaves[key]), dtype=gp.X.dtype, device=gp.X.device)
+    return gp, t
+
+
+def warped_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
+                       warp: str = "tanh", dtype=None, device=None) -> WarpedGP:
+    """A ``WarpedGP``; ``warp`` is 'tanh' (leaves ``warp.d a b c``), 'log' or
+    'identity' (no leaves)."""
+    gp, t = _inner_gp(leaves, family, dtype, device)
+    if warp == "tanh":
+        w = TanhWarp(d=t("warp.d"), a=t("warp.a"), b=t("warp.b"), c=t("warp.c"))
+    else:
+        w = {"log": LogWarp, "identity": IdentityWarp}[warp]()
+    return WarpedGP(gp=gp, warp=w)
+
+
+def input_warped_from_leaves(leaves: Mapping[str, np.ndarray], dims, family: str = "matern52",
+                             dtype=None, device=None) -> InputWarpedGP:
+    """An ``InputWarpedGP`` warping the inputs ``dims``."""
+    gp, t = _inner_gp(leaves, family, dtype, device)
+    return InputWarpedGP(gp=gp, warp=KumarWarp(a=t("warp.a"), b=t("warp.b"), lo=t("warp.lo"),
+                                               hi=t("warp.hi"), dims=tuple(int(d) for d in dims)))
+
+
+def mcmc_from_samples(leaves: Mapping[str, np.ndarray], hmc_samples, family: str = "rbf",
+                      dtype=None, device=None, **model_kwargs) -> GPModel_MCMC:
+    """A ``GPModel_MCMC`` on the point-estimate GP of ``leaves`` with the JAX
+    model's kept ``hmc_samples`` (S, P) as its samples; ``model_kwargs`` go to
+    the model (``exact_feval`` decides which leaves the rows hold)."""
+    gp = gp_from_leaves(leaves, family, dtype=dtype, device=device)
+    model = GPModel_MCMC(dtype=gp.X.dtype, device=gp.X.device, **model_kwargs)
+    model.set_samples(gp, hmc_samples)
+    return model

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, resolve_dtype
 from ..ops import cuda_kernels
 from .base import Kernel
 
@@ -59,10 +59,11 @@ class Stationary(Kernel):
 
     @classmethod
     def create(cls, input_dim, variance=1.0, lengthscale=None, ARD=False,
-               active_dims=None, dtype=torch.float64, device=None, **extra):
+               active_dims=None, dtype=None, device=None, **extra):
         """GPy-style constructor (stationary.py:61-83); ``device`` None means
         the card."""
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         if lengthscale is None:
             lengthscale = torch.ones((input_dim,) if ARD else (), dtype=dtype, device=device)
         else:
@@ -252,7 +253,7 @@ class RatQuad(Stationary):
 
     @classmethod
     def create(cls, input_dim, variance=1.0, lengthscale=None, power=2.0, ARD=False,
-               active_dims=None, dtype=torch.float64, device=None):
+               active_dims=None, dtype=None, device=None):
         return super().create(input_dim, variance, lengthscale, ARD, active_dims,
                               dtype=dtype, device=device, power=power)
 

@@ -19,7 +19,8 @@ hint the fit started from and the posterior's rung.
 to the model and to its fits; ``optimizer`` and ``verbose`` are GPyOpt's
 arguments, kept and unused (the fit is this package's L-BFGS).
 
-Tensors live on ``device`` (the card unless another is named) in ``dtype``;
+Tensors live on ``device`` (the card unless another is named) in ``dtype``
+(float32 on the card and float64 on the CPU unless another is named);
 fit restarts draw from ``generator`` (a ``torch.Generator`` on that device,
 seeded from ``seed`` by default).
 """
@@ -31,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import config, resolve_device
+from ..config import config, resolve_device, resolve_dtype
 from ..kernels.gower import Gower
 from ..kernels.stationary import Matern52
 from .fit import Fitter
@@ -53,7 +54,7 @@ class GPModel:
     def __init__(self, kernel=None, noise_var=None, exact_feval=False, optimizer="lbfgs",
                  max_iters=1000, optimize_restarts=5, verbose=False, ARD=False, Gower=False,
                  space=None, mean_function=None, priors=None, seed=0, device=None,
-                 dtype=torch.float64, generator=None):
+                 dtype=None, generator=None):
         self.kernel_template = kernel
         self.noise_var = noise_var
         self.exact_feval = exact_feval
@@ -67,7 +68,7 @@ class GPModel:
         self.Gower = Gower
         self.space = space
         self.device = resolve_device(device)
-        self.dtype = dtype
+        self.dtype = resolve_dtype(dtype, self.device)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = generator
@@ -76,6 +77,17 @@ class GPModel:
         self.ladder: list[dict] = []
         self._fitters: dict = {}
         self._fmin = None
+
+    @classmethod
+    def from_fitted(cls, model: GPRegression, posterior=None, **kwargs) -> "GPModel":
+        """The surrogate around an already fitted ``model`` (on its device, in
+        its dtype), with its posterior (``Li`` precomputed unless given)."""
+        out = cls(device=model.X.device, dtype=model.X.dtype, **kwargs)
+        out.model = model
+        with torch.no_grad():
+            out.posterior = (posterior if posterior is not None
+                             else model.inference(precompute_inverse=True))
+        return out
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, dtype=float), dtype=self.dtype,
@@ -97,9 +109,7 @@ class GPModel:
                             disc_dims=disc, gpy_compat=True)
 
     def _create_model(self, X, Y, max_points):
-        noise = self.noise_var if self.noise_var is not None else float(np.var(Y)) * 0.01
-        if self.exact_feval:
-            noise = 1e-6
+        noise = default_noise(self.noise_var, self.exact_feval, Y)
         kern = self.kernel_template
         if kern is None:
             kern = self._default_kernel(X.shape[1])
@@ -172,30 +182,18 @@ class GPModel:
         cached per refit."""
         if self._fmin is None:
             with torch.no_grad():
-                mu = self.model.predict_mean(self.model.X, self.posterior)
-                mu = torch.where(self.model.mask[:, None] > 0, mu,
-                                 torch.full_like(mu, float("inf")))
-            self._fmin = float(torch.min(mu))
+                self._fmin = float(masked_fmin(self.model, self.posterior))
         return self._fmin
 
     def Y_min(self) -> float:
-        """Smallest real training target, LP's ``Min`` (batch_local_penalization.py:44)."""
-        Y = self.model.Y[self.model.mask > 0]
-        return float(Y.min())
-
-    def _parameter_leaves(self):
-        return named_leaves(_Parameters(self.model.kern, self.model.likelihood_variance))
+        return real_Y_min(self.model)
 
     def get_model_parameters(self):
         """The kernel's leaves and the noise as one ``(1, n)`` row (gpmodel.py:143)."""
-        return np.atleast_2d(np.concatenate(
-            [t.detach().cpu().numpy().ravel() for _, t in self._parameter_leaves()]))
+        return parameter_rows(self.model.kern, self.model.likelihood_variance, lanes=1)
 
     def get_model_parameters_names(self):
-        """One name per leaf, as the reference's: the leaf's last attribute
-        name ('' for the noise, which stands alone beside the kernel)."""
-        return [leaf_name(path) if path.startswith("kern") else ""
-                for path, _ in self._parameter_leaves()]
+        return parameter_names(self.model.kern, self.model.likelihood_variance)
 
     def device_state(self):
         """(model, posterior, fmin) for the acquisitions' tensor code."""
@@ -209,3 +207,48 @@ class _Parameters:
 
     kern: object = None
     noise: torch.Tensor = None
+
+
+def parameter_rows(kern, noise, lanes: int = 1, like=None) -> np.ndarray:
+    """The kernel's leaves and the noise, ``(lanes, n)``: one row per lane of a
+    lane-batched model. A leaf with no more axes than its counterpart in
+    ``like``, a model without lanes (a fixed noise, say), is repeated."""
+    leaves = [t for _, t in named_leaves(_Parameters(kern, noise))]
+    ref = leaves if like is None else [t for _, t in named_leaves(_Parameters(*like))]
+    rows = []
+    for t, r in zip(leaves, ref):
+        a = t.detach().cpu().numpy()
+        if like is not None and a.ndim == r.ndim:
+            a = np.broadcast_to(a, (lanes,) + a.shape)
+        rows.append(a.reshape(lanes, -1))
+    return np.concatenate(rows, axis=1)
+
+
+def parameter_names(kern, noise) -> list[str]:
+    """One name per leaf, as the reference's: the leaf's last attribute name
+    ('' for the noise, which stands alone beside the kernel)."""
+    return [leaf_name(path) if path.startswith("kern") else ""
+            for path, _ in named_leaves(_Parameters(kern, noise))]
+
+
+def masked_fmin(gp, posterior) -> torch.Tensor:
+    """Smallest posterior mean over the real training rows, one per lane
+    (``lanes``-shaped; a scalar without lanes)."""
+    mu = gp.predict_mean(gp.X, posterior)
+    if gp.mask is not None:
+        mu = torch.where(gp.mask[:, None] > 0, mu, torch.full_like(mu, float("inf")))
+    return torch.amin(mu, dim=(-2, -1))
+
+
+def real_Y_min(gp) -> float:
+    """Smallest real training target, LP's ``Min`` (batch_local_penalization.py:44)."""
+    Y = gp.Y if gp.mask is None else gp.Y[gp.mask > 0]
+    return float(Y.min())
+
+
+def default_noise(noise_var, exact_feval, Y) -> float:
+    """GPyOpt's noise: the given one, else var(Y) * 0.01, and 1e-6 under
+    ``exact_feval`` (gpmodel.py:64-72)."""
+    if exact_feval:
+        return 1e-6
+    return noise_var if noise_var is not None else float(np.var(Y)) * 0.01

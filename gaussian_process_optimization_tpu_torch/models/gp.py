@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from ..config import config, resolve_device
+from ..config import config, resolve_device, resolve_dtype
 from ..kernels.base import Kernel
 from ..kernels.stationary import RBF
 from ..ops import linalg
@@ -162,13 +162,14 @@ class GPRegression:
     @classmethod
     def create(cls, X, Y, kernel: Kernel | None = None, noise_var=1.0,
                normalizer: bool = False, mean_function: Mapping | None = None,
-               max_points: int | None = None, dtype=torch.float64,
+               max_points: int | None = None, dtype=None,
                device=None) -> "GPRegression":
         """GPy-style constructor (gp.py:215-268): optional padding to
         ``max_points`` rows with a mask (always present when padding is asked
         for). A scalar ``noise_var`` is homoscedastic; an ``(N,)`` vector gives
         each row its own noise. ``device`` None means the card."""
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         X = torch.as_tensor(np.asarray(X), dtype=dtype, device=device)
         X = X.reshape(1, -1) if X.ndim == 1 else X
         Y = torch.as_tensor(np.asarray(Y), dtype=dtype, device=device)

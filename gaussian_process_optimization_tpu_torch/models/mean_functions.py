@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, resolve_dtype
 from ..kernels.base import Kernel
 
 
@@ -39,8 +39,9 @@ class Constant(Mapping):
     C: torch.Tensor = None
 
     @classmethod
-    def create(cls, input_dim, output_dim=1, value=0.0, dtype=torch.float64, device=None):
+    def create(cls, input_dim, output_dim=1, value=0.0, dtype=None, device=None):
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         return cls(input_dim=input_dim, output_dim=output_dim,
                    C=torch.full((output_dim,), float(value), dtype=dtype, device=device))
 
@@ -57,8 +58,9 @@ class LinearMapping(Mapping):
     A: torch.Tensor = None
 
     @classmethod
-    def create(cls, input_dim, output_dim=1, A=None, dtype=torch.float64, device=None):
+    def create(cls, input_dim, output_dim=1, A=None, dtype=None, device=None):
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         A = (_param(A, dtype, device) if A is not None
              else torch.zeros((input_dim, output_dim), dtype=dtype, device=device))
         return cls(input_dim=input_dim, output_dim=output_dim, A=A)
@@ -112,10 +114,11 @@ class KernelMapping(Mapping):
 
     @classmethod
     def create(cls, input_dim, output_dim, Z, kernel=None, A=None, seed=0,
-               dtype=torch.float64, device=None):
+               dtype=None, device=None):
         from ..kernels.stationary import RBF
 
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         Z = _param(Z, dtype, device)
         if kernel is None:
             kernel = RBF.create(input_dim, dtype=dtype, device=device)
@@ -139,9 +142,10 @@ class MLPMapping(Mapping):
     b2: torch.Tensor = None
 
     @classmethod
-    def create(cls, input_dim=1, output_dim=1, hidden_dim=3, seed=0, dtype=torch.float64,
+    def create(cls, input_dim=1, output_dim=1, hidden_dim=3, seed=0, dtype=None,
                device=None):
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         rng = np.random.default_rng(seed)
         return cls(input_dim=input_dim, output_dim=output_dim,
                    W1=_param(rng.standard_normal((input_dim, hidden_dim)), dtype, device),
@@ -164,8 +168,9 @@ class PiecewiseLinear(Mapping):
     breaks: torch.Tensor = None
 
     @classmethod
-    def create(cls, values, breaks, dtype=torch.float64, device=None):
+    def create(cls, values, breaks, dtype=None, device=None):
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype, device)
         return cls(input_dim=1, output_dim=1,
                    values=_param(values, dtype, device).reshape(-1),
                    breaks=_param(breaks, dtype, device).reshape(-1))

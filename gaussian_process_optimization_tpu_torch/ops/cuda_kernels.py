@@ -24,7 +24,8 @@ Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; a CPU tensor takes the plain PyTorch version beside it
 (the same explicit-difference arithmetic). Routing into the wrappers is the
 reference's gate, :func:`supports`. ``launches`` on each wrapper counts kernel
-launches.
+launches; the backward's ``launches_dx`` and ``launches_dz`` count, of those,
+the row passes that wrote dX and the column (dZ) passes.
 
 Shapes: ``X (Bx, N, D)``, ``Z (Bz, M, D)``, ``params (Bp, W)`` with each of
 ``Bx, Bz, Bp`` either 1 (shared by all lanes) or ``B``. The params row per lane
@@ -284,6 +285,7 @@ def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
             partials.data_ptr() if need_params else None, *common),
             "stationary_k_backward (row pass)")
         stationary_k_backward.launches += 1
+        stationary_k_backward.launches_dx += int(need_dx)
         if need_params:
             dparams = torch.empty(B, W, **new)
             _build.check(lib.gpo_sum_partials(partials.data_ptr(), dparams.data_ptr(),
@@ -296,6 +298,7 @@ def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
             Xp.data_ptr(), Zp.data_ptr(), params.data_ptr(), G.data_ptr(),
             scratch.data_ptr(), *common), "stationary_k_backward (column pass)")
         stationary_k_backward.launches += 1
+        stationary_k_backward.launches_dz += 1
         dZ = torch.empty(B, M, D, **new)
         _build.check(lib.gpo_sum_partials(scratch.data_ptr(), dZ.data_ptr(), B, strips,
                                           M * D, _stream()),
@@ -304,6 +307,9 @@ def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
 
 
 stationary_k_backward.launches = 0
+# of those: row passes that also wrote dX, and column (dZ) passes
+stationary_k_backward.launches_dx = 0
+stationary_k_backward.launches_dz = 0
 
 
 def _sum_to_lanes(g, lanes: int):

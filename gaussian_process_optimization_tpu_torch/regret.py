@@ -4,7 +4,8 @@
         [--jobs 1] [--device cpu] [--dtype float32] [--out chiprun_out/regret_torch.json]
 
 Runs ``FUNC_SPECS`` (6 test functions, 10 seeds each: EI, latin initial design of
-5, ``exact_feval``, every iteration) on the card in float32, writes every run's
+5, ``exact_feval``, every iteration) on the card, in float32 unless ``--dtype``
+says otherwise (float64 on the CPU, as every entry point), writes every run's
 regret curve to a JSON file, and prints per function the median and the
 inter-quartile range of the final simple regret beside those of the JAX package's
 CPU float64 runs stored in ``benchmarks/regret_raw.json`` (``cpu_f64``), with the
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from . import workload
+from .config import resolve_dtype
 
 ROOT = Path(__file__).resolve().parent.parent
 REFERENCE = ROOT / "benchmarks" / "regret_raw.json"
@@ -58,14 +60,15 @@ def _one(task):
     return name, seed, r.regret, r.evaluations, r.fit_failed, r.seconds
 
 
-def run(funcs, seeds: int, device=None, dtype=torch.float32, jobs: int = 1,
+def run(funcs, seeds: int, device=None, dtype=None, jobs: int = 1,
         log=print) -> dict:
     """``{function: {"curves": [...], "fit_s": ..., "acq_s": ..., "fit_failed":
     count}}`` for each function in ``funcs``; ``fit_s`` and ``acq_s`` sum the
     runs' own host-clock seconds. ``jobs`` > 1 spreads the runs over that many
-    worker processes."""
-    device = str(workload.resolve_device(device))
-    name_of = str(dtype).rsplit(".", 1)[-1]
+    worker processes. ``dtype`` None follows the device (``config.resolve_dtype``)."""
+    device = workload.resolve_device(device)
+    name_of = str(resolve_dtype(dtype, device)).rsplit(".", 1)[-1]
+    device = str(device)
     tasks = [(name, seed, device, name_of) for name in funcs for seed in range(seeds)]
     out = {name: {"curves": [None] * seeds, "fit_s": 0.0, "acq_s": 0.0, "fit_failed": 0}
            for name in funcs}
@@ -117,7 +120,8 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, default=10)
     ap.add_argument("--jobs", type=int, default=1, help="runs side by side, one process each")
     ap.add_argument("--device", default=None, help="default: the card")
-    ap.add_argument("--dtype", default="float32", choices=("float32", "float64"))
+    ap.add_argument("--dtype", default=None, choices=("float32", "float64"),
+                    help="default: float32 on the card, float64 on the CPU")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "regret_torch.json"))
     args = ap.parse_args(argv)
     funcs = [f for f in args.funcs.split(",") if f]
@@ -130,15 +134,15 @@ def main(argv=None):
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip())
     t0 = time.perf_counter()
-    results = run(funcs, args.seeds, device=device, dtype=getattr(torch, args.dtype),
-                  jobs=args.jobs)
+    dtype = resolve_dtype(None if args.dtype is None else getattr(torch, args.dtype), device)
+    results = run(funcs, args.seeds, device=device, dtype=dtype, jobs=args.jobs)
     wall = time.perf_counter() - t0
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     merged = json.loads(out.read_text()) if out.exists() else {}
     merged.update(results)
     out.write_text(json.dumps(merged))
-    print(f"# {args.dtype} on {device}, {args.seeds} seeds, {args.jobs} job(s), "
+    print(f"# {str(dtype).rsplit('.', 1)[-1]} on {device}, {args.seeds} seeds, {args.jobs} job(s), "
           f"{wall:.1f} s in all; curves in {out}")
     verdicts = report(results, reference_curves())
     print(f"# IQR overlap with the JAX package's CPU float64 runs: {verdicts}")

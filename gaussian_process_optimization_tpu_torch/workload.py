@@ -23,23 +23,39 @@ on the first), Gamma priors on every lengthscale and variance, a constant mean
 function, the LCB acquisition from Sobol anchors, and the tell-and-ask loop on
 the recipe's noise-free function.
 
+The surrogates (``surrogate_bo``, ``surrogate_iteration``,
+``entropy_search_argmax``, ``sparse_data`` / ``sparse_model``): GPyOpt's other
+model types and acquisitions on the bench's data through
+``BayesianOptimization`` (GP_MCMC with EI_MCMC at GPyOpt's HMC defaults,
+sparseGP, warpedGP, input_warped_GP, RF), entropy search (ES, ES_EPMGP) on a
+fitted exact GP, and the sparse bound at the recipe of
+``examples/large_scale_sparse.py`` (N = 50 000, D = 2, M = 256 inducing points,
+RBF, noise 0.05). Each iteration reports a host-clock split.
+
 The sizes are arguments, so a test can run the same functions small.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from .bo import objectives
-from .bo.acquisitions import neg_ei
+from .bo.acquisitions import AcquisitionBase, neg_ei
+from .bo.entropy_search import AcquisitionEntropySearch, AcquisitionEntropySearchEPMGP
+from .bo.optimizer import AcquisitionOptimizer
+from .bo.space import DesignSpace
 from .bo.methods import BayesianOptimization
 from .bo.space import bounds_to_space
-from .config import resolve_device
+from .config import resolve_device, resolve_dtype
 from .kernels.stationary import RBF, Matern52
+from .models import fit as fit_module
+from .models.bo_models import GPModel
 from .models.fit import Fitter
 from .models.gp import GPRegression, Posterior
+from .models.sparse import SparseGPRegression
 from .models.mean_functions import Constant
 from .ops import lbfgs
 from .ops.lbfgs import LBFGSResult
@@ -80,9 +96,11 @@ def bench_data(n: int = N, d: int = D, seed: int = 0):
     return X, Y
 
 
-def make_model(X, Y, dtype=torch.float32, device=None) -> GPRegression:
-    """The bench's padded ARD Matern52 GP; ``device`` None means the card."""
+def make_model(X, Y, dtype=None, device=None) -> GPRegression:
+    """The bench's padded ARD Matern52 GP; ``device`` None means the card,
+    ``dtype`` None float32 there (float64 on the CPU)."""
     device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
     d = X.shape[1]
     return GPRegression.create(
         X, Y, kernel=Matern52.create(d, ARD=True, dtype=dtype, device=device),
@@ -150,7 +168,7 @@ def thesis_data(n: int = N, seed: int = 0):
 
 def thesis_bo(X, Y, restarts: int = FIT_RESTARTS, steps: int = FIT_STEPS,
               batch: int = THESIS_BATCH, device=None,
-              dtype=torch.float64) -> BayesianOptimization:
+              dtype=None) -> BayesianOptimization:
     """The bench's ask-tell optimizer (bench.py:198-203); ``device`` None
     means the card."""
     return BayesianOptimization(
@@ -188,7 +206,7 @@ class RegretRun:
 
 
 def regret_run(func_name: str, seed: int, iters: int | None = None, device=None,
-               dtype=torch.float32, **kwargs) -> RegretRun:
+               dtype=None, **kwargs) -> RegretRun:
     """One run of the regret protocol (benchmarks/regret_compare.py:61-68): EI,
     latin initial design of 5, ``exact_feval``, ``eps=-1`` so that every
     iteration runs. ``iters`` None is the protocol's count for the function;
@@ -212,7 +230,7 @@ def bench_function(x):
 
 
 def composite_bo(X, Y, restarts: int = FIT_RESTARTS, steps: int = FIT_STEPS, device=None,
-                 dtype=torch.float32, kernel=None, mean_function=None,
+                 dtype=None, kernel=None, mean_function=None,
                  **kwargs) -> BayesianOptimization:
     """The composite path's optimizer on given data: ``Matern52(ARD) +
     RBF(active_dims=(0,))``, Gamma(2, 1) priors on ``lengthscale`` and
@@ -222,6 +240,7 @@ def composite_bo(X, Y, restarts: int = FIT_RESTARTS, steps: int = FIT_STEPS, dev
     ``BayesianOptimization`` and override these choices. ``device`` None means
     the card."""
     device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
     d = X.shape[1]
     if kernel is None:
         kernel = (Matern52.create(d, ARD=True, dtype=dtype, device=device)
@@ -236,3 +255,109 @@ def composite_bo(X, Y, restarts: int = FIT_RESTARTS, steps: int = FIT_STEPS, dev
     return BayesianOptimization(
         f=bench_function, domain=bounds_to_space([BOX] * d), X=X, Y=Y, kernel=kernel,
         mean_function=mean_function, device=device, dtype=dtype, **options)
+
+
+def _synchronize(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def surrogate_bo(X, Y, model_type: str, acquisition_type: str = "EI", device=None, dtype=None,
+                 **kwargs) -> BayesianOptimization:
+    """Ask-tell ``BayesianOptimization`` on the given data over the bench's box
+    with another surrogate (``model_type``: 'GP_MCMC', 'sparseGP', 'warpedGP',
+    'input_warped_GP', 'RF' or 'GP') and acquisition, GPyOpt's defaults
+    otherwise; ``kwargs`` go to it. ``device`` None means the card."""
+    return BayesianOptimization(
+        f=None, domain=bounds_to_space([BOX] * X.shape[1]), X=X, Y=Y, model_type=model_type,
+        acquisition_type=acquisition_type, seed=0, device=resolve_device(device),
+        dtype=dtype, **kwargs)
+
+
+@dataclasses.dataclass
+class SurrogateIteration:
+    batch: np.ndarray        # the suggestion(s), objective space
+    seconds: dict            # host clock: fit (and, for GP_MCMC, hmc and posterior), argmax
+
+
+def surrogate_iteration(bo: BayesianOptimization) -> SurrogateIteration:
+    """One ``suggest_next_locations`` and its split. The MCMC surrogate's refit
+    is split into its fit, its HMC chain and the S-lane posterior."""
+    t0 = time.perf_counter()
+    batch = bo.suggest_next_locations()
+    total = time.perf_counter() - t0
+    seconds = {"fit": bo.fit_seconds}
+    model_seconds = getattr(bo.model, "seconds", None)
+    if isinstance(model_seconds, dict) and "hmc" in model_seconds:
+        seconds = dict(model_seconds)
+    seconds["argmax"] = total - bo.fit_seconds
+    return SurrogateIteration(batch=batch, seconds=seconds)
+
+
+@dataclasses.dataclass
+class EntropySearchArgmax:
+    x: np.ndarray            # (1, d), the argmax
+    f: np.ndarray            # (1, 1), its minimize-convention value
+    acquisition: AcquisitionBase
+    seconds: dict            # host clock: representers (sampler and p_min), argmax
+
+
+def entropy_search_argmax(model: GPRegression, acquisition: str = "ES_EPMGP",
+                          representers: int = 50, burn_in: int = 50, sweep: int = ACQ_SWEEP,
+                          anchors: int = ACQ_ANCHORS, posterior=None) -> EntropySearchArgmax:
+    """One argmax of entropy search on a fitted exact GP, over the bench's box,
+    on the model's device and in its dtype: the representers (ensemble sampler,
+    then EPMGP's p_min or the MC draws), then the sweep of ``sweep`` candidates,
+    whose best ``anchors`` are the candidates (ES has no gradient)."""
+    surrogate = GPModel.from_fitted(model, posterior=posterior)
+    space = DesignSpace(bounds_to_space([BOX] * model.X.shape[1]))
+    opt = AcquisitionOptimizer(space, model=surrogate, num_samples=sweep, num_anchor=anchors)
+    cls = {"ES": AcquisitionEntropySearch, "ES_EPMGP": AcquisitionEntropySearchEPMGP}[acquisition]
+    acq = cls(surrogate, space, opt, num_representer_points=representers,
+              burn_in_steps=burn_in)
+    t0 = time.perf_counter()
+    acq._update_representers()
+    _synchronize(model.X.device)
+    t1 = time.perf_counter()
+    x, f = AcquisitionBase.optimize(acq)
+    return EntropySearchArgmax(x=x, f=f, acquisition=acq,
+                               seconds={"representers": t1 - t0,
+                                        "argmax": time.perf_counter() - t1})
+
+
+# examples/large_scale_sparse.py:20-48 (BASELINE.md configuration 4)
+SPARSE_N = 50_000
+SPARSE_M = 256
+
+
+def sparse_truth(X):
+    return np.sin(X[:, :1] * 2.0) * np.cos(X[:, 1:2])
+
+
+def sparse_data(n: int = SPARSE_N, seed: int = 0):
+    """The sparse example's recipe, numpy float64: X uniform in [-3, 3]^2,
+    sin(2 x0) cos(x1) plus noise of std 0.1."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3, 3, size=(n, 2))
+    return X, sparse_truth(X) + 0.1 * rng.standard_normal((n, 1))
+
+
+def sparse_model(X, Y, num_inducing: int = SPARSE_M, inference: str = "vardtc", device=None,
+                 dtype=None) -> SparseGPRegression:
+    """The example's model: RBF (variance 1, lengthscale 1), noise 0.05, Z a
+    seeded random subset of X; ``device`` None means the card."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+    kern = RBF.create(X.shape[1], variance=1.0, lengthscale=1.0, dtype=dtype, device=device)
+    return SparseGPRegression.create(X, Y, kernel=kern, num_inducing=num_inducing,
+                                     noise_var=0.05, inference=inference, dtype=dtype,
+                                     device=device)
+
+
+def sparse_fit(model: SparseGPRegression, steps: int = 50, generator=None):
+    """The example's fit: one restart of ``steps`` L-BFGS steps on the bound,
+    Z included; returns (fitted, LBFGSResult, seconds)."""
+    t0 = time.perf_counter()
+    fitted, res = fit_module.fit(model, num_restarts=1, maxiter=steps, generator=generator)
+    _synchronize(model.X.device)
+    return fitted, res, time.perf_counter() - t0

@@ -254,13 +254,38 @@ def test_every_gp_option_is_accepted(axis, value):
     assert np.all((x >= lo) & (x <= hi))
 
 
+_MCMC = dict(n_samples=3, n_burnin=4, subsample_interval=2, leapfrog_steps=3)
+
+
+@pytest.mark.parametrize("model_type,acquisition,extra", [
+    ("sparseGP", "EI", dict(num_inducing=4)),
+    ("GP_MCMC", "EI_MCMC", _MCMC),
+    ("GP_MCMC", "MPI_MCMC", _MCMC),
+    ("GP_MCMC", "LCB_MCMC", _MCMC),
+    ("warpedGP", "EI", {}),
+    ("input_warped_GP", "MPI", {}),
+    ("RF", "EI", {}),
+    ("GP", "ES", {}),
+    ("GP", "ES_EPMGP", {}),
+])
+def test_every_model_and_acquisition_is_accepted(model_type, acquisition, extra):
+    """Each surrogate and acquisition the reference accepts beyond the exact
+    GP's builds the reference's classes, and one ``suggest_next_locations``
+    through it gives a point inside the box."""
+    kw = _common(model_type=model_type, acquisition_type=acquisition, anchor_points_samples=60,
+                 anchor_points_num=2, **extra)
+    theirs = JBO(**kw)
+    bo = BayesianOptimization(**kw, device="cpu")
+    for name in ("model", "acquisition"):
+        assert type(getattr(bo, name)).__name__ == type(getattr(theirs, name)).__name__
+    x = bo.suggest_next_locations()
+    lo, hi = np.array(objectives.branin.bounds).T
+    assert x.shape == (1, 2) and np.all((x >= lo) & (x <= hi))
+
+
 @pytest.mark.parametrize("kw,error,match", (
-    [(dict(model_type=m), NotImplementedError, m)
-     for m in ("sparseGP", "GP_MCMC", "warpedGP", "input_warped_GP", "RF")]
-    + [(dict(acquisition_type=a), NotImplementedError, a)
-       for a in ("EI_MCMC", "MPI_MCMC", "LCB_MCMC", "ES", "ES_EPMGP")]
-    + [(dict(mesh=object()), NotImplementedError, "mesh"),
-       (dict(n_burnin=10), NotImplementedError, "n_burnin"),
+    [(dict(mesh=object()), NotImplementedError, "mesh"),
+       (dict(pool=object()), NotImplementedError, "pool"),
        (dict(model_type="forest"), InvalidConfigError, "forest"),
        (dict(acquisition_type="UCB"), InvalidConfigError, "UCB"),
        (dict(evaluator_type="greedy", batch_size=2), InvalidConfigError, "greedy"),

@@ -450,3 +450,98 @@ def test_composite_kernel_route_matches_plain_route(op, lanes, cuda):
     for a, b in zip(grads, grads_plain):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
     assert torch.equal(K, K.mT)
+
+
+@pytest.mark.parametrize("n", [1000, 1237])
+def test_sparse_kmn_and_z_gradient_match_plain(n, cuda):
+    """The sparse bound's Kmn = K(Z, X) at M = 256 inducing inputs and a
+    ragged N: B1 against the plain build, and through autograd the gradient
+    with respect to Z (B2's row pass) and the parameters against the plain
+    route's; the launches are counted."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.kernels import RBF
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    X = (torch.rand(n, 2, generator=gen) * 6 - 3).to(cuda)
+    Z0 = (torch.rand(256, 2, generator=gen) * 6 - 3).to(cuda)
+    G = torch.randn(256, n, generator=gen).to(cuda)
+    kern = RBF.create(2, variance=1.3, lengthscale=0.8, dtype=torch.float32, device=cuda)
+
+    def run(use_kernels):
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = use_kernels
+        try:
+            Z = Z0.clone().requires_grad_(True)
+            var = kern.variance.clone().requires_grad_(True)
+            K = RBF(input_dim=2, variance=var, lengthscale=kern.lengthscale).K(Z, X)
+            return (K.detach(),) + torch.autograd.grad(torch.sum(K * G), (Z, var))
+        finally:
+            config.use_cuda_kernels = old
+
+    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    ck.stationary_k_backward.launches_dx = 0
+    got = run("auto")
+    assert ck.stationary_k_build.launches == 1 and ck.stationary_k_backward.launches_dx == 1
+    want = run(False)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-6)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_lane_posterior_equals_single_lane_posteriors(cuda):
+    """The MCMC surrogate's S-lane posterior, factored in one batched call,
+    against S posteriors of one lane each: the same predictions."""
+    from gaussian_process_optimization_tpu_torch.models.mcmc_bo_model import GPModel_MCMC
+
+    X, Y = bench_data(n=300)
+    m = make_model(X, Y, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(0)
+    rows = np.hstack([rng.uniform(0.3, 1.0, (4, 1)), rng.uniform(0.8, 2.0, (4, 6)),
+                      rng.uniform(-4.0, -3.0, (4, 1))])
+    lanes = GPModel_MCMC(device=cuda)
+    lanes.set_samples(m, rows)
+    Xt = rng.uniform(-2, 2, (50, 6))
+    mus, stds = lanes.predict(Xt)
+    for s in range(4):
+        one = GPModel_MCMC(device=cuda)
+        one.set_samples(m, rows[s:s + 1])
+        mu, sd = one.predict(Xt)
+        np.testing.assert_allclose(mus[s], mu[0], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(stds[s], sd[0], rtol=1e-4, atol=1e-5)
+    assert lanes.samples.kern.variance.shape == (4,)
+
+
+def test_mcmc_update_launches_the_kernels(cuda):
+    """One GP_MCMC refit at N = 300 (a short chain; the 512 bucket, so that
+    tri_inv_lower has two 256-blocks for B3) in float32 on the card: B1, B2 and
+    B3 launched, the samples finite."""
+    from gaussian_process_optimization_tpu_torch.models.mcmc_bo_model import GPModel_MCMC
+
+    X, Y = bench_data(n=300)
+    model = GPModel_MCMC(n_samples=3, n_burnin=2, subsample_interval=2, leapfrog_steps=3,
+                         device=cuda)
+    assert model.dtype == torch.float32
+    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    cl.tri_inv_blocks.launches = 0
+    model.updateModel(X, Y)
+    assert ck.stationary_k_build.launches > 0 and ck.stationary_k_backward.launches > 0
+    assert cl.tri_inv_blocks.launches > 0
+    assert np.all(np.isfinite(model.hmc_samples)) and model.hmc_samples.shape[0] == 3
+
+
+def test_bare_bayesian_optimization_runs_float32_kernels(cuda):
+    """A bare BayesianOptimization(f, domain) builds on the card in float32 and
+    its refit launches B1."""
+    from gaussian_process_optimization_tpu_torch.bo import BayesianOptimization, bounds_to_space
+
+    def f(x):
+        x = np.atleast_2d(x)
+        return np.sum(np.square(x - 0.3), axis=1, keepdims=True)
+
+    X = np.random.default_rng(0).uniform(-2, 2, (200, 2))
+    bo = BayesianOptimization(f, bounds_to_space([(-2.0, 2.0)] * 2), X=X, max_iters=5)
+    assert bo.model.device.type == "cuda" and bo.model.dtype == torch.float32
+    ck.stationary_k_build.launches = 0
+    x = bo.suggest_next_locations()
+    assert ck.stationary_k_build.launches > 0
+    assert x.shape == (1, 2) and np.all(np.abs(x) <= 2.0)

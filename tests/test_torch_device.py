@@ -1,6 +1,7 @@
 """The torch port's entry points build on the card unless the caller names
 another device: with no CUDA device a bare call raises, before it builds
-anything, and never falls back to the CPU; ``device="cpu"`` builds there."""
+anything, and never falls back to the CPU; ``device="cpu"`` builds there. The
+dtype follows the device: float32 on the card, float64 on the CPU."""
 import pytest
 import torch
 
@@ -12,11 +13,18 @@ from gaussian_process_optimization_tpu_torch.bo.cost import CostModel
 from gaussian_process_optimization_tpu_torch.bo.evaluators import Sequential
 from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
 from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
-from gaussian_process_optimization_tpu_torch.config import resolve_device
+from gaussian_process_optimization_tpu_torch.config import resolve_device, resolve_dtype
 from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52, RatQuad, Sinc
 from gaussian_process_optimization_tpu_torch.models import mean_functions
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
+from gaussian_process_optimization_tpu_torch.models.mcmc_bo_model import GPModel_MCMC
+from gaussian_process_optimization_tpu_torch.models.sparse import SparseGPRegression
+from gaussian_process_optimization_tpu_torch.models.sparse_bo_model import SparseGPModel
+from gaussian_process_optimization_tpu_torch.models.warped import (InputWarpedGP, TanhWarp,
+                                                                   WarpedGP)
+from gaussian_process_optimization_tpu_torch.models.warped_bo_model import (InputWarpedGPModel,
+                                                                            WarpedGPModel)
 
 
 def _data():
@@ -68,6 +76,17 @@ ENTRY_POINTS = {
     "RatQuad.create": lambda **kw: RatQuad.create(6, **kw).variance.device,
     "GPModel": lambda **kw: GPModel(**kw).device,
     "gp_from_leaves": lambda **kw: convert.gp_from_leaves(_leaves(), **kw).X.device,
+    "GPModel_MCMC": lambda **kw: GPModel_MCMC(**kw).device,
+    "SparseGPModel": lambda **kw: SparseGPModel(**kw).device,
+    "WarpedGPModel": lambda **kw: WarpedGPModel(**kw).device,
+    "InputWarpedGPModel": lambda **kw: InputWarpedGPModel(None, **kw).device,
+    "SparseGPRegression.create": lambda **kw: SparseGPRegression.create(
+        *_data(), num_inducing=4, **kw).Z.device,
+    "WarpedGP.create": lambda **kw: WarpedGP.create(*_data(), **kw).warp.a.device,
+    "InputWarpedGP.create": lambda **kw: InputWarpedGP.create(*_data(), **kw).warp.lo.device,
+    "TanhWarp.create": lambda **kw: TanhWarp.create(**kw).d.device,
+    "mcmc_from_samples": lambda **kw: convert.mcmc_from_samples(
+        _leaves(), [[0.5] * 7], family="matern52", exact_feval=True, **kw).samples.X.device,
 }
 
 
@@ -97,3 +116,49 @@ def test_resolve_device(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
+
+
+def test_dtype_follows_the_device():
+    """float32 on a CUDA device (the JAX package's dtype on its accelerator,
+    and the one the CUDA kernels take), float64 on the CPU; a named dtype
+    wins."""
+    assert resolve_dtype(None, "cuda") == torch.float32
+    assert resolve_dtype(None, torch.device("cuda", 0)) == torch.float32
+    assert resolve_dtype(None, "cpu") == torch.float64
+    assert resolve_dtype(torch.float64, "cuda") == torch.float64
+    assert resolve_dtype(torch.float32, "cpu") == torch.float32
+
+
+@pytest.mark.parametrize("name", ["GPModel", "GPModel_MCMC", "SparseGPModel", "WarpedGPModel",
+                                  "Matern52.create", "GPRegression.create", "make_model"])
+def test_cpu_default_dtype_is_float64(name):
+    """What the CPU parity tests rely on: a CPU build with no dtype is float64."""
+    built = {
+        "GPModel": lambda: GPModel(device="cpu").dtype,
+        "GPModel_MCMC": lambda: GPModel_MCMC(device="cpu").dtype,
+        "SparseGPModel": lambda: SparseGPModel(device="cpu").dtype,
+        "WarpedGPModel": lambda: WarpedGPModel(device="cpu").dtype,
+        "Matern52.create": lambda: Matern52.create(3, device="cpu").variance.dtype,
+        "GPRegression.create": lambda: GPRegression.create(*_data(), device="cpu").X.dtype,
+        "make_model": lambda: workload.make_model(*_data(), device="cpu").X.dtype,
+    }[name]()
+    assert built == torch.float64
+
+
+@pytest.mark.parametrize("dtype,want", [(None, torch.float64), ("float32", torch.float32)])
+def test_regret_runner_dtype_follows_the_device(monkeypatch, dtype, want):
+    """The regret runner with no dtype runs the CPU in float64, as every entry
+    point; a named dtype wins."""
+    from gaussian_process_optimization_tpu_torch import regret
+
+    seen = []
+    real = workload.regret_run
+
+    def spy(name, seed, **kw):
+        seen.append(kw["dtype"])
+        return real(name, seed, iters=0, max_iters=1, optimize_restarts=1, **kw)
+
+    monkeypatch.setattr(workload, "regret_run", spy)
+    regret.run(["forrester"], 1, device="cpu",
+               dtype=None if dtype is None else getattr(torch, dtype), log=lambda *a, **k: None)
+    assert seen == [want]
