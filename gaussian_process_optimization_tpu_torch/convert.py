@@ -24,8 +24,17 @@ sparse GP's add ``Z``; a warped GP's are the inner GP's under ``gp.`` and the
 warp's under ``warp.`` (``d a b c`` for the tanh warp; ``a b lo hi`` for the
 input warp). An MCMC surrogate is its point-estimate GP's leaves and the JAX
 model's kept ``hmc_samples``.
+
+The approximate-inference models' leaves: an SVGP's ``kern.``, ``likelihood_variance``,
+``Z``, ``q_mu``, ``q_sqrt_flat``, ``num_data``; a Laplace GP's ``kern.``, its
+likelihood's under ``likelihood.`` (``deg_free sigma2`` for the Student-t, and so
+on), ``X``, ``Y``; a classifier's ``kern.``, ``X``, ``Y`` and, if sparse, ``Z``; a
+Student-t process's ``kern.``, ``deg_free``, ``X``, ``Y``. A likelihood is named by
+its class (``"StudentT"``) and its link, where it has one, by the link's class.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from typing import Mapping
 
@@ -36,10 +45,15 @@ from .config import resolve_device, resolve_dtype
 from .kernels.base import Add, Prod
 from .kernels.gower import Gower
 from .kernels.stationary import FAMILY_CLASSES
+from .models import likelihoods as likelihood_module
 from .models import mean_functions
+from .models.classification import GPClassification, SparseGPClassification
 from .models.gp import GPRegression
+from .models.laplace import GPLaplace
 from .models.mcmc_bo_model import GPModel_MCMC
 from .models.sparse import SparseGPRegression
+from .models.svgp import SVGP
+from .models.tp import TPRegression
 from .models.warped import (IdentityWarp, InputWarpedGP, KumarWarp, LogWarp, TanhWarp,
                             WarpedGP)
 from .utils.tree import named_leaves
@@ -159,3 +173,81 @@ def mcmc_from_samples(leaves: Mapping[str, np.ndarray], hmc_samples, family: str
     model = GPModel_MCMC(dtype=gp.X.dtype, device=gp.X.device, **model_kwargs)
     model.set_samples(gp, hmc_samples)
     return model
+
+
+def _placed(leaves, dtype, device):
+    """(t(key) -> a tensor on the device, the kernel of ``kern.`` leaves)."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+
+    def t(key):
+        return torch.tensor(np.asarray(leaves[key]), dtype=dtype, device=device)
+
+    def kern(family, d):
+        fields = {"variance": t("kern.variance"), "lengthscale": t("kern.lengthscale")}
+        if "kern.power" in leaves:
+            fields["power"] = t("kern.power")
+        return FAMILY_CLASSES[family](input_dim=d, **fields)
+
+    return t, kern
+
+
+def likelihood_from_leaves(leaves: Mapping[str, np.ndarray], name: str, link: str | None = None,
+                           prefix: str = "likelihood.", dtype=None, device=None):
+    """A likelihood of class ``name`` from its leaves under ``prefix``; an
+    integer leaf (``output_index``) stays integer. ``link`` names the link
+    class of a linked likelihood."""
+    t, _ = _placed(leaves, dtype, device)
+    cls = getattr(likelihood_module, name)
+    fields = {}
+    for f in dataclasses.fields(cls):
+        key = prefix + f.name
+        if f.name == "gp_link":
+            fields["gp_link"] = getattr(likelihood_module, link)()
+        elif key in leaves:
+            v = np.asarray(leaves[key])
+            fields[f.name] = (torch.tensor(v, device=t(key).device) if v.dtype.kind in "iu"
+                              else t(key))
+    return cls(**fields)
+
+
+def svgp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "rbf", dtype=None,
+                     device=None) -> SVGP:
+    """An ``SVGP`` with the closed-form Gaussian likelihood."""
+    t, kern = _placed(leaves, dtype, device)
+    Z = t("Z")
+    return SVGP(kern=kern(family, Z.shape[-1]), likelihood_variance=t("likelihood_variance"),
+                Z=Z, q_mu=t("q_mu"), q_sqrt_flat=t("q_sqrt_flat"), num_data=t("num_data"))
+
+
+def laplace_from_leaves(leaves: Mapping[str, np.ndarray], likelihood: str = "Bernoulli",
+                        link: str | None = None, family: str = "rbf", dtype=None,
+                        device=None) -> GPLaplace:
+    """A ``GPLaplace`` with the likelihood of class ``likelihood``."""
+    t, kern = _placed(leaves, dtype, device)
+    X = t("X")
+    return GPLaplace(kern=kern(family, X.shape[-1]),
+                     likelihood=likelihood_from_leaves(leaves, likelihood, link, dtype=X.dtype,
+                                                       device=X.device), X=X, Y=t("Y"))
+
+
+def classification_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "rbf",
+                               inference_mode: str = "parallel", max_sweeps: int = 60,
+                               dtype=None, device=None):
+    """A ``GPClassification``, or a ``SparseGPClassification`` when the
+    leaves carry ``Z``."""
+    t, kern = _placed(leaves, dtype, device)
+    X = t("X")
+    common = dict(kern=kern(family, X.shape[-1]), X=X, Y=t("Y"), inference_mode=inference_mode,
+                  max_sweeps=max_sweeps)
+    if "Z" in leaves:
+        return SparseGPClassification(Z=t("Z"), **common)
+    return GPClassification(**common)
+
+
+def tp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "rbf", dtype=None,
+                   device=None) -> TPRegression:
+    """A ``TPRegression``."""
+    t, kern = _placed(leaves, dtype, device)
+    X = t("X")
+    return TPRegression(kern=kern(family, X.shape[-1]), deg_free=t("deg_free"), X=X, Y=t("Y"))

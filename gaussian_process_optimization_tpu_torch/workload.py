@@ -32,6 +32,13 @@ fitted exact GP, and the sparse bound at the recipe of
 ``examples/large_scale_sparse.py`` (N = 50 000, D = 2, M = 256 inducing points,
 RBF, noise 0.05). Each iteration reports a host-clock split.
 
+The approximate-inference slice (``svgp_model`` / ``svgp_fit`` / ``svgp_probe``,
+``classification_labels``, ``outlier_targets``): minibatch SVGP at the same
+sparse recipe with the example's 300 Adam steps at batch 2048 and learning rate
+1e-2, the classifiers' labels sign(Y - median Y) on the main data, and the main
+targets with 5% of rows lifted by 5 standard deviations (the robust-regression
+gallery's outliers).
+
 The sizes are arguments, so a test can run the same functions small.
 """
 from __future__ import annotations
@@ -56,6 +63,7 @@ from .models.bo_models import GPModel
 from .models.fit import Fitter
 from .models.gp import GPRegression, Posterior
 from .models.sparse import SparseGPRegression
+from .models.svgp import SVGP, fit_svgp
 from .models.mean_functions import Constant
 from .ops import lbfgs
 from .ops.lbfgs import LBFGSResult
@@ -361,3 +369,61 @@ def sparse_fit(model: SparseGPRegression, steps: int = 50, generator=None):
     fitted, res = fit_module.fit(model, num_restarts=1, maxiter=steps, generator=generator)
     _synchronize(model.X.device)
     return fitted, res, time.perf_counter() - t0
+
+
+# examples/large_scale_sparse.py:38-40: the SVGP leg of BASELINE.md configuration 4
+SVGP_STEPS = 300
+SVGP_BATCH = 2048
+SVGP_LR = 1e-2
+
+
+def svgp_model(X, Y, num_inducing: int = SPARSE_M, device=None, dtype=None) -> SVGP:
+    """The example's SVGP: RBF (variance 1, lengthscale 1), noise 0.05, Z a
+    seeded random subset of X, q(u) whitened at N(0, I); ``device`` None
+    means the card."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+    kern = RBF.create(X.shape[1], variance=1.0, lengthscale=1.0, dtype=dtype, device=device)
+    return SVGP.create(X, Y, kernel=kern, num_inducing=num_inducing, noise_var=0.05,
+                       dtype=dtype, device=device)
+
+
+def svgp_fit(model: SVGP, X, Y, steps: int = SVGP_STEPS, batch: int = SVGP_BATCH,
+             generator=None, indices=None):
+    """The example's minibatch Adam; returns (fitted, -ELBO per step, seconds)."""
+    t0 = time.perf_counter()
+    fitted, losses = fit_svgp(model, X, Y, num_steps=steps, batch_size=batch,
+                              learning_rate=SVGP_LR, generator=generator, indices=indices)
+    _synchronize(model.Z.device)
+    return fitted, losses, time.perf_counter() - t0
+
+
+def svgp_probe(model: SVGP, seed: int = 0) -> SVGP:
+    """The model with a seeded, non-trivial q(u) (q_mu ~ N(0, 0.25), q_sqrt
+    0.3 I plus a small random lower triangle), drawn in numpy float64 so that
+    every device and dtype gets the same leaves: a point at which to hold the
+    float32 ELBO against float64, where the whitened mean passes through
+    Kmm's ill-conditioned factor."""
+    rng = np.random.default_rng(seed)
+    m, p = model.q_mu.shape
+    q_mu = 0.5 * rng.standard_normal((m, p))
+    Ls = 0.3 * np.eye(m)[None] + 0.01 * np.tril(rng.standard_normal((p, m, m)), -1)
+    rows, cols = np.tril_indices(m)
+    like = dict(dtype=model.q_mu.dtype, device=model.q_mu.device)
+    return dataclasses.replace(model, q_mu=torch.as_tensor(q_mu, **like),
+                               q_sqrt_flat=torch.as_tensor(Ls[:, rows, cols].T.copy(), **like))
+
+
+def classification_labels(Y):
+    """sign(Y - median(Y)) as {-1, +1}."""
+    Y = np.asarray(Y, dtype=float).reshape(-1)
+    return np.where(Y > np.median(Y), 1.0, -1.0)
+
+
+def outlier_targets(Y, share: float = 0.05, sigmas: float = 5.0, seed: int = 0):
+    """Y with a seeded ``share`` of its rows lifted by ``sigmas`` standard
+    deviations (examples/gallery/non_gaussian.py's corrupted targets)."""
+    Y = np.asarray(Y, dtype=float).reshape(-1).copy()
+    rows = np.random.default_rng(seed).permutation(Y.shape[0])[:int(share * Y.shape[0])]
+    Y[rows] += sigmas * Y.std()
+    return Y

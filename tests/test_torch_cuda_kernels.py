@@ -5,6 +5,8 @@ imports neither JAX nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -545,3 +547,98 @@ def test_bare_bayesian_optimization_runs_float32_kernels(cuda):
     x = bo.suggest_next_locations()
     assert ck.stationary_k_build.launches > 0
     assert x.shape == (1, 2) and np.all(np.abs(x) <= 2.0)
+
+
+@pytest.mark.parametrize("batch", [2048, 1000])
+def test_svgp_elbo_launches_and_z_gradient_match_plain(batch, cuda):
+    """A minibatch ELBO of the SVGP at M = 256 (D = 2, RBF, lengthscale 0.4):
+    Kmm and Kmn = K(Z, X_batch) go through B1, Z's gradient through B2 (Kmm's
+    both passes, Kmn's row pass). Kmm's factor amplifies float32's rounding of
+    K, so each route is held against the float64 plain route: the kernel
+    route's error in the ELBO and in its gradient in Z and the kernel within 4x
+    the plain float32 route's (B1's per-entry error is ~1.1x the plain K's)."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.kernels import RBF
+    from gaussian_process_optimization_tpu_torch.models.svgp import SVGP
+    from gaussian_process_optimization_tpu_torch.workload import sparse_data, svgp_probe
+
+    X, Y = sparse_data(n=5000)
+    kern = RBF.create(2, variance=1.0, lengthscale=0.4, device=cuda)
+    model = svgp_probe(SVGP.create(X, Y, kernel=kern, num_inducing=256, noise_var=0.05,
+                                   device=cuda))
+    Xb = torch.as_tensor(X[:batch], dtype=torch.float32, device=cuda)
+    Yb = torch.as_tensor(Y[:batch], dtype=torch.float32, device=cuda)
+
+    def run(use_kernels, dtype=torch.float32):
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = use_kernels
+        try:
+            t = {k: getattr(model, k).to(dtype) for k in ("Z", "q_mu", "q_sqrt_flat",
+                                                         "likelihood_variance", "num_data")}
+            Z = t.pop("Z").requires_grad_(True)
+            ls = model.kern.lengthscale.to(dtype).requires_grad_(True)
+            m = SVGP(kern=RBF(input_dim=2, variance=model.kern.variance.to(dtype),
+                              lengthscale=ls), Z=Z, **t)
+            elbo = m.elbo(Xb.to(dtype), Yb.to(dtype))
+            return (elbo.detach(),) + torch.autograd.grad(elbo, (Z, ls))
+        finally:
+            config.use_cuda_kernels = old
+
+    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    ck.stationary_k_backward.launches_dx = ck.stationary_k_backward.launches_dz = 0
+    got = run("auto")
+    assert ck.stationary_k_build.launches == 2
+    assert ck.stationary_k_backward.launches_dx == 2 and ck.stationary_k_backward.launches_dz == 1
+    plain = run(False)
+    ref = run(False, torch.float64)
+    for a, b, r in zip(got, plain, ref):
+        scale = float(r.abs().max())
+        err_kernel = float((a.double() - r).abs().max()) / scale
+        err_plain = float((b.double() - r).abs().max()) / scale
+        print(f"SVGP f32 error against the float64 plain route: kernel {err_kernel:.3e}, "
+              f"plain {err_plain:.3e}")
+        assert err_kernel <= 4.0 * err_plain + 1e-6, (err_kernel, err_plain)
+
+
+@pytest.mark.parametrize("which", ["laplace", "ep", "tp"])
+def test_approximate_inference_launches_the_kernels(which, cuda):
+    """The Laplace evidence, the EP evidence at fixed sites and the Student-t
+    process evidence at N = 256, D = 6 in float32: B1 forward and B2 backward
+    launched, the value and the kernel gradient against the plain route."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.kernels import RBF
+    from gaussian_process_optimization_tpu_torch.models.classification import GPClassification
+    from gaussian_process_optimization_tpu_torch.models.laplace import GPLaplace
+    from gaussian_process_optimization_tpu_torch.models.tp import TPRegression
+    from gaussian_process_optimization_tpu_torch.workload import classification_labels
+
+    X, Y = bench_data(n=256)
+    labels = classification_labels(Y)
+    kern = RBF.create(6, variance=1.0, lengthscale=1.5, device=cuda)
+    if which == "laplace":
+        model = GPLaplace.create(X, labels, kernel=kern, device=cuda)
+    elif which == "tp":
+        model = TPRegression.create(X, Y, kernel=kern, deg_free=5.0, device=cuda)
+    else:
+        model = GPClassification.create(X, labels, kernel=kern, device=cuda)
+        post = model.inference()
+
+    def run(use_kernels):
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = use_kernels
+        try:
+            ls = model.kern.lengthscale.clone().requires_grad_(True)
+            m = dataclasses.replace(model, kern=RBF(input_dim=6, variance=model.kern.variance,
+                                                    lengthscale=ls))
+            val = (m.site_fixed_lml(post.tau_site, post.nu_site) if which == "ep"
+                   else m.log_marginal_likelihood())
+            return val.detach(), torch.autograd.grad(val, ls)[0]
+        finally:
+            config.use_cuda_kernels = old
+
+    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    got = run("auto")
+    assert ck.stationary_k_build.launches >= 1 and ck.stationary_k_backward.launches >= 1
+    want = run(False)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-3 * float(want[1].abs().max()))

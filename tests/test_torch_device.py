@@ -9,6 +9,7 @@ from gaussian_process_optimization_tpu_torch import convert, workload
 from gaussian_process_optimization_tpu_torch.bo import (BayesianOptimization,
                                                         ModularBayesianOptimization)
 from gaussian_process_optimization_tpu_torch.bo.acquisitions import AcquisitionEI
+from gaussian_process_optimization_tpu_torch.bo.interface import BODriver
 from gaussian_process_optimization_tpu_torch.bo.cost import CostModel
 from gaussian_process_optimization_tpu_torch.bo.evaluators import Sequential
 from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
@@ -17,10 +18,15 @@ from gaussian_process_optimization_tpu_torch.config import resolve_device, resol
 from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52, RatQuad, Sinc
 from gaussian_process_optimization_tpu_torch.models import mean_functions
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
+from gaussian_process_optimization_tpu_torch.models.classification import (
+    GPClassification, SparseGPClassification, SparseGPClassificationUncertainInput)
+from gaussian_process_optimization_tpu_torch.models.laplace import GPLaplace
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.mcmc_bo_model import GPModel_MCMC
 from gaussian_process_optimization_tpu_torch.models.sparse import SparseGPRegression
 from gaussian_process_optimization_tpu_torch.models.sparse_bo_model import SparseGPModel
+from gaussian_process_optimization_tpu_torch.models.svgp import SVGP
+from gaussian_process_optimization_tpu_torch.models.tp import TPRegression
 from gaussian_process_optimization_tpu_torch.models.warped import (InputWarpedGP, TanhWarp,
                                                                    WarpedGP)
 from gaussian_process_optimization_tpu_torch.models.warped_bo_model import (InputWarpedGPModel,
@@ -87,6 +93,16 @@ ENTRY_POINTS = {
     "TanhWarp.create": lambda **kw: TanhWarp.create(**kw).d.device,
     "mcmc_from_samples": lambda **kw: convert.mcmc_from_samples(
         _leaves(), [[0.5] * 7], family="matern52", exact_feval=True, **kw).samples.X.device,
+    "SVGP.create": lambda **kw: SVGP.create(*_data(), num_inducing=4, **kw).Z.device,
+    "GPLaplace.create": lambda **kw: GPLaplace.create(*_data(), **kw).X.device,
+    "GPClassification.create": lambda **kw: GPClassification.create(*_data(), **kw).Y.device,
+    "SparseGPClassification.create": lambda **kw: SparseGPClassification.create(
+        *_data(), num_inducing=4, **kw).Z.device,
+    "SparseGPClassificationUncertainInput.create":
+        lambda **kw: SparseGPClassificationUncertainInput.create(
+            _data()[0], 0.01, _data()[1], num_inducing=4, **kw).X_variance.device,
+    "TPRegression.create": lambda **kw: TPRegression.create(*_data(), **kw).deg_free.device,
+    "BODriver": lambda **kw: BODriver({}, None, **kw).device,
 }
 
 

@@ -1,0 +1,251 @@
+"""The torch port's Laplace approximation (``models/laplace.py``) against the
+JAX package, in float64: the mode, W and the evidence of ``laplace_inference``;
+the evidence and its gradient in the packed parameters at two lanes (each lane
+stopping on its own tolerance) for an analytic-derivative, an autograd-derivative
+and a log-concave likelihood; the gradient against central differences;
+prediction, quantiles on injected draws, the log predictive density; and a
+short fit through ``models/fit``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gaussian_process_optimization_tpu.kernels as jk
+from gaussian_process_optimization_tpu.models import fit as jfit
+from gaussian_process_optimization_tpu.models import laplace as jlap
+from gaussian_process_optimization_tpu.models import likelihoods as jl
+from gaussian_process_optimization_tpu.models.parameters import make_packer as jmake_packer
+from gaussian_process_optimization_tpu_torch import convert
+from gaussian_process_optimization_tpu_torch.kernels.stationary import RBF
+from gaussian_process_optimization_tpu_torch.models import fit as tfit
+from gaussian_process_optimization_tpu_torch.models import laplace as tlap
+from gaussian_process_optimization_tpu_torch.models import likelihoods as tl
+from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+
+
+def _data(kind, n=24, seed=0):
+    rng = np.random.default_rng(seed)
+    X = np.sort(rng.uniform(0, 6, (n, 1)), axis=0)
+    s = np.sin(X[:, 0])
+    if kind == "Bernoulli":
+        Y = (s + 0.3 * rng.standard_normal(n) > 0).astype(float)
+    elif kind == "Poisson":
+        Y = rng.poisson(np.exp(s + 0.5)).astype(float)
+    elif kind == "GammaLik":
+        Y = rng.gamma(2.0, np.exp(s) / 2.0)
+    else:
+        Y = s + 0.1 * rng.standard_normal(n)
+        Y[::6] += 3.0  # outliers
+    return X, Y
+
+
+LIKS = {"Bernoulli": (jl.Bernoulli, tl.Bernoulli, None),
+        "StudentT": (jl.StudentT.create, tl.StudentT.create, {"deg_free": 4.0, "sigma2": 0.5}),
+        "Poisson": (jl.Poisson, tl.Poisson, None),
+        "GammaLik": (jl.GammaLik.create, tl.GammaLik.create, {"beta": 2.0})}
+
+
+def _pair(kind):
+    X, Y = _data(kind)
+    jmk, tmk, kw = LIKS[kind]
+    jlik = jmk(**kw) if kw else jmk()
+    tlik = tmk(**kw, device="cpu") if kw else tmk()
+    jm = jlap.GPLaplace.create(X, Y, kernel=jk.RBF.create(1, variance=1.3, lengthscale=0.9),
+                               likelihood=jlik)
+    tm = tlap.GPLaplace.create(X, Y, kernel=RBF.create(1, variance=1.3, lengthscale=0.9,
+                                                        device="cpu"),
+                               likelihood=tlik, device="cpu")
+    return jm, tm
+
+
+@pytest.fixture(scope="module", params=list(LIKS))
+def pair(request):
+    return (request.param,) + _pair(request.param)
+
+
+def test_inference_matches_jax(pair):
+    """The mode, W, the gradient at the mode and the evidence, rel 1e-10."""
+    _, jm, tm = pair
+    jp = jax.jit(lambda m: m.inference())(jm)
+    with torch.no_grad():
+        tp = tm.inference()
+    for name in ("f_hat", "W", "grad"):
+        np.testing.assert_allclose(getattr(tp, name).numpy(), np.asarray(getattr(jp, name)),
+                                   rtol=1e-10, atol=1e-12)
+    assert float(tp.lml) == pytest.approx(float(jp.lml), rel=1e-10)
+    assert 1 <= int(tp.iterations) <= 50
+
+
+def test_evidence_and_gradient_match_jax(pair):
+    """Two lanes of packed parameters (kernel and likelihood leaves), the
+    second a small step from the first, where the Student-t's Newton still
+    converges (see the next-but-one test): the evidence rel 1e-10 and its
+    gradient rel 1e-7 per lane."""
+    _, jm, tm = pair
+    jp, tp = jmake_packer(jm), make_packer(tm)
+    assert tp.num_free == jp.num_free and tp.fixed == jp.fixed
+    jobj, tobj = jfit.make_objective(jp), tfit.make_objective(tp)
+    u0 = np.asarray(jp.pack(jm))
+    U = np.stack([u0, u0 + 0.05 * np.cos(np.arange(u0.shape[0]))])
+    Ut = torch.tensor(U, requires_grad=True)
+    f = tobj(Ut, tm)
+    (g,) = torch.autograd.grad(f.sum(), Ut)
+    jvg = jax.jit(jax.value_and_grad(jobj))
+    for b in range(2):
+        val, grad = jvg(jnp.asarray(U[b]), jm)
+        assert float(f[b]) == pytest.approx(float(val), rel=1e-10)
+        np.testing.assert_allclose(g[b].numpy(), np.asarray(grad), rtol=1e-7,
+                                   atol=1e-9 * np.abs(np.asarray(grad)).max())
+
+
+def test_gradient_is_the_implicit_derivative():
+    """Autograd through the two Newton steps against central differences
+    (Poisson: log-concave, one mode), as the reference's own check."""
+    _, tm = _pair("Poisson")
+    assert tfit.checkgrad(tm, eps=1e-5, rtol=2e-4, atol=1e-7)
+
+
+def test_lanes_stop_on_their_own_tolerance():
+    """A lane of a lane-batched K takes as many Newton steps, and reaches the
+    same evidence, as it does alone."""
+    _, tm = _pair("StudentT")
+    kern = RBF(input_dim=1, variance=torch.tensor([1.3, 0.4], dtype=torch.float64),
+               lengthscale=torch.tensor([0.9, 2.5], dtype=torch.float64))
+    with torch.no_grad():
+        both = tlap.laplace_inference(kern.K(tm.X), tm.Y, tm.likelihood)
+        for b in range(2):
+            one = RBF(input_dim=1, variance=kern.variance[b], lengthscale=kern.lengthscale[b])
+            alone = tlap.laplace_inference(one.K(tm.X), tm.Y, tm.likelihood)
+            assert int(both.iterations[b]) == int(alone.iterations)
+            assert float(both.lml[b]) == pytest.approx(float(alone.lml), rel=1e-12)
+    assert int(both.iterations[0]) != int(both.iterations[1])
+
+
+def test_newton_without_a_mode_runs_to_maxiter_in_both():
+    """Student-t is not log-concave: at sigma2 = 0.1 on these outliers GPML
+    Alg. 3.1 (no step control, as in the reference) cycles and stops at
+    maxiter in both packages, so their modes are not comparable there; at
+    sigma2 = 0.5 (the parity cases above) it converges in 11 steps."""
+    X, Y = _data("StudentT")
+    tm = tlap.GPLaplace.create(X, Y, kernel=RBF.create(1, variance=1.3, lengthscale=0.9,
+                                                        device="cpu"),
+                               likelihood=tl.StudentT.create(4.0, 0.1, device="cpu"),
+                               device="cpu")
+    with torch.no_grad():
+        assert int(tm.inference().iterations) == 50
+    jm = jlap.GPLaplace.create(X, Y, kernel=jk.RBF.create(1, variance=1.3, lengthscale=0.9),
+                               likelihood=jl.StudentT.create(4.0, 0.1))
+    K = jm.kern.K(jm.X)
+    f = jlap.laplace_inference(K, jm.Y, jm.likelihood, maxiter=50).f_hat
+    f_more = jlap.laplace_inference(K, jm.Y, jm.likelihood, maxiter=51).f_hat
+    assert float(jnp.max(jnp.abs(f_more - f))) > 1e-3
+
+
+def test_prediction_matches_jax(pair):
+    kind, jm, tm = pair
+    Xs = np.linspace(-0.5, 6.5, 9)[:, None]
+    jmu, jvar = jm._raw_predict(jnp.asarray(Xs))
+    tmu, tvar = tm._raw_predict(Xs)
+    np.testing.assert_allclose(tmu.detach().numpy(), np.asarray(jmu), rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(tvar.detach().numpy(), np.asarray(jvar), rtol=1e-9, atol=1e-11)
+    for a, b in zip(tm.predict(Xs), jm.predict(jnp.asarray(Xs))):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-9, atol=1e-11)
+    y = _data(kind, n=9, seed=3)[1]
+    np.testing.assert_allclose(tm.log_predictive_density(Xs, y).detach().numpy(),
+                               np.asarray(jm.log_predictive_density(jnp.asarray(Xs), y)),
+                               rtol=1e-9, atol=1e-11)
+    # quantiles on the JAX package's own observation draws
+    key = jax.random.PRNGKey(5)
+    want = jm.predict_quantiles(jnp.asarray(Xs), (10.0, 90.0), key=key)
+    kf, ky = jax.random.split(key)
+    f = jmu[:, None] + jnp.sqrt(jvar)[:, None] * jax.random.normal(kf, (9, 300),
+                                                                   dtype=jnp.float64)
+    draws = None if kind == "Gaussian" else np.asarray(jm.likelihood.samples(f, ky))
+    got = tm.predict_quantiles(Xs, (10.0, 90.0), draws=draws)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=1e-9, atol=1e-11)
+
+
+def test_fit_matches_jax():
+    """One restart of 8 L-BFGS steps on the Student-t model: the fitted
+    evidence rel 1e-6 and the same number of line-search trials."""
+    jm, tm = _pair("StudentT")
+    jfitted, jres = jfit.fit(jm, num_restarts=1, maxiter=8, key=jax.random.PRNGKey(0))
+    tfitted, tres = tfit.fit(tm, num_restarts=1, maxiter=8)
+    with torch.no_grad():
+        t_lml = float(tfitted.log_marginal_likelihood())
+    assert t_lml == pytest.approx(float(jfitted.log_marginal_likelihood()), rel=1e-6)
+    assert t_lml > float(jm.log_marginal_likelihood())
+
+
+def test_convert_rebuilds_the_jax_model():
+    jm, _ = _pair("StudentT")
+    leaves = {"kern.variance": jm.kern.variance, "kern.lengthscale": jm.kern.lengthscale,
+              "likelihood.deg_free": jm.likelihood.deg_free,
+              "likelihood.sigma2": jm.likelihood.sigma2, "X": jm.X, "Y": jm.Y}
+    back = convert.laplace_from_leaves({k: np.asarray(v) for k, v in leaves.items()},
+                                       likelihood="StudentT", device="cpu")
+    with torch.no_grad():
+        assert float(back.log_marginal_likelihood()) == pytest.approx(
+            float(jm.log_marginal_likelihood()), rel=1e-10)
+
+
+def test_posterior_samples_hold_the_predictive_mean():
+    """Observation draws through the likelihood (Bernoulli, diagonal and full
+    covariance): their mean within 5 standard errors of the predictive
+    probability at every test point."""
+    _, tm = _pair("Bernoulli")
+    Xs = np.linspace(0.5, 5.5, 5)[:, None]
+    with torch.no_grad():
+        p, _ = tm.predict(Xs)
+        for full_cov in (False, True):
+            y = tm.posterior_samples(Xs, 4000, rng=np.random.default_rng(1),
+                                     full_cov=full_cov).numpy()
+            assert y.shape == (5, 4000) and set(np.unique(y)) <= {0.0, 1.0}
+            p_np = p.numpy()
+            assert np.all(np.abs(y.mean(1) - p_np) <= 5 * np.sqrt(p_np * (1 - p_np) / 4000))
+
+
+
+@pytest.mark.slow
+def test_f32_lml_error_at_the_cards_fitted_point():
+    """The Bernoulli Laplace evidence at the card's fitted leaves
+    (``prof_laplace.LEAVES``, where the card's float32 -LML reads 2.58e-3 from
+    float64, 2.75e-3 through the plain K; N = 4096, D = 6, the main path's
+    inputs, labels sign(Y - median Y)), float32 against float64 on the CPU in
+    both packages (the JAX package's float32 as on its accelerator). K's
+    variance there is ~5e3, so the float32 Newton loop never meets its 1e-9
+    tolerance and the evidence moves with where the 50-step cap stops it: read
+    at caps 49, 50 and 51, the port's largest error is within 2x of the JAX
+    package's largest (~140 s)."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.prof_laplace import LEAVES
+
+    X, Y = workload.bench_data()
+    y = workload.classification_labels(Y)
+    leaves = {"X": X, "Y": y, **{k: np.asarray(v) for k, v in LEAVES.items()}}
+    caps = (49, 50, 51)
+
+    def port(dtype, cap):
+        m = convert.laplace_from_leaves(leaves, dtype=dtype, device="cpu")
+        with torch.no_grad():
+            return -float(tlap.laplace_inference(m.kern.K(m.X), m.Y, m.likelihood,
+                                                 maxiter=cap).lml)
+
+    ref = port(torch.float64, 50)
+    jm = jlap.GPLaplace.create(X, y, kernel=jk.RBF.create(
+        6, variance=LEAVES["kern.variance"],
+        lengthscale=LEAVES["kern.lengthscale"]))
+    assert -float(jm.log_marginal_likelihood()) == pytest.approx(ref, rel=1e-10)
+    port_err = [abs(port(torch.float32, c) - ref) / ref for c in caps]
+    jax_err = []
+    with jax.enable_x64(False):
+        j32 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float32), jm)
+        K32 = j32.kern.K(j32.X)
+        for c in caps:
+            lml = jlap.laplace_inference(K32, j32.Y, j32.likelihood, maxiter=c).lml
+            jax_err.append(abs(-float(lml) - ref) / ref)
+    print(f"Laplace Bernoulli f32 -LML rel error at the card's fitted leaves, Newton caps "
+          f"{caps}: JAX {['%.2e' % e for e in jax_err]}, port {['%.2e' % e for e in port_err]}")
+    assert max(port_err) <= 2.0 * max(jax_err), (port_err, jax_err)
