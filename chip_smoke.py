@@ -93,7 +93,24 @@ Phases, each printing its own lines:
                 launched); the command line in a child interpreter (7
                 evaluation rows) and save_model / load_model bit for bit. Phase 3
                 also holds B1 and B2 at the SVGP's Kmn 256 x 2048;
- 10. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
+ 10. zoo      — the kernel zoo and the first multi-output, grid and state-space models,
+                float32 on the card, through their entry points with no device given
+                (run before leg A). Leg 1, the slice's main path: ICM coregionalized
+                regression (3 tasks of 1366 + 1365 + 1365 rows, ARD Matern52 on 6 inputs
+                read through active_dims, rank 1), a 5 x 30 fit, the posterior and 3 x
+                1000 predictions (B1-B3 launched, -LML and its gradient at the fitted
+                point against float64, every variance > 0). Leg 2: an exact GP at
+                N=4096 on 1-D times under RBF + StandardPeriodic * RBF + RatQuad +
+                Linear + Bias, the same gates. Leg 3: the Kronecker grid GP on 64 x 64
+                points (f32 against f64, the float64 -LML against the dense GP's, a
+                1 x 30 fit). Leg 4: the quasi-periodic state-space GP at N=4096 (seconds
+                per -LML and gradient, f32 against f64, the Matern32 form's float64
+                -LML against the dense GP's, a fit cut to 2 steps). Leg 5: every other
+                zoo kernel at N=4096, K and each leaf's gradient, f32 against f64. B1
+                and B2 also timed at legs 1-2's shapes (D=6 through a 7-column slice,
+                D=1), with plain times and byte bounds. The phase reports every leg
+                before it fails on any;
+ 11. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -636,7 +653,7 @@ def _neg_lml_grad_terms(model):
     return g_logdet[0].double(), g_quad[0].double()
 
 
-def _print_fitted_gradient(fitted, fitted64) -> float:
+def _print_fitted_gradient(fitted, fitted64, quiet=False) -> float:
     """Per-component f32 and f64 gradients at the fitted point, beside the f64
     logdet and quad terms; returns max |g32 - g64| / max(|logdet term|, |quad term|)."""
     from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
@@ -651,6 +668,8 @@ def _print_fitted_gradient(fitted, fitted64) -> float:
     g32, g64 = ld32 + q32, ld64 + q64
     terms = torch.maximum(ld64.abs(), q64.abs())
     err = (g32 - g64).abs()
+    if quiet:
+        return float((err / terms).max())
     m = fitted64
     Ky = m.kern.K(m.X) + m._effective_noise(torch.float64) * torch.eye(
         m.X.shape[0], dtype=torch.float64, device=m.X.device)
@@ -1825,6 +1844,451 @@ def phase_approximate(fitted):
     return total
 
 
+# Phase 10's limits. Legs 1-2: the -LML at the fitted point, f32 against f64
+# at the f32 ladder's jitter (relative), and the gradient there, max |g32 -
+# g64| over the larger of its two terms (the main path's measure,
+# _print_fitted_gradient). The JAX package's own float32 at the card's fitted
+# points on the CPU (tests/test_torch_zoo_f32.py::test_f32_lml_error_at_the_
+# cards_fitted_point) reads -LML 2.95e-5 and gradient 1.48e-3 (leg 1), 2.31e-5
+# and 7.12e-1 (leg 2: the Bias variance's component, a float32 sum of N^2
+# entries of Ky^-1, is its own rounding). The -LML limit is the main path's
+# (phase 4), above 30x those readings; each gradient limit is 10x the
+# reading. Leg 3 (grid) and leg 4 (state space): the -LML and its gradient at
+# the model's start, relative to max |g64|; the JAX package's float32 there
+# (CPU, test_f32_error_of_the_grid_and_state_space_legs) reads 1.71e-5 and
+# 1.03e-2 (grid), 9.58e-7 and 3.83e-3 (state space), and each limit is 10x
+# the reading. Leg 5: K (max |K32 - K64| / max |K64|) and every leaf's
+# gradient of sum(W * K) (max over leaves of max |g32 - g64| / max |g64|).
+ICM_LML_LIMIT = 1e-3
+ICM_GRAD_LIMIT = 1.5e-2
+CO2_LML_LIMIT = 1e-3
+CO2_GRAD_LIMIT = 7.1
+GRID_LML_LIMIT = 1.7e-4
+GRID_GRAD_LIMIT = 1.0e-1
+GRID_DENSE_LIMIT = 1e-9       # float64 grid -LML against the dense GP's
+SS_LML_LIMIT = 9.6e-6
+SS_GRAD_LIMIT = 3.8e-2
+SS_DENSE_LIMIT = 1e-9         # float64 Matern32 state-space -LML against the dense GP's
+SS_FIT_STEPS = 2              # the state-space fit's depth (a cut: 6-11 s an evaluation)
+# Leg 5: the JAX package's own float32 error against float64 at N = 64 on the
+# CPU, per kernel, (K, gradient), as tests/test_torch_zoo_f32.py::
+# test_f32_error_is_the_references prints it (workload.zoo_cases's inputs).
+# Each limit is 10x that reading, and at least ZOO_K_FLOOR / ZOO_GRAD_FLOOR
+# (a few float32 roundings: the readings of the exact kernels are ~1e-7, and a
+# gradient sums N^2 terms). EQ_ODE2's float32 is the reference's own: 1.5e-2
+# and 8.4e-2 at N = 64 (complex64 through the Faddeeva function).
+ZOO_JAX_F32 = {
+    "TruncLinear": (1.036e-07, 7.333e-07), "TruncLinearInf": (7.626e-08, 8.424e-07),
+    "Hierarchical": (1.925e-07, 1.103e-05), "Symmetric": (1.321e-07, 2.868e-06),
+    "PolynomialBasisFunc": (6.924e-08, 5.563e-08),
+    "LinearSlopeBasisFunc": (7.691e-08, 6.033e-07),
+    "ChangePointBasisFunc": (0.000e+00, 3.028e-07), "DomainKernel": (0.000e+00, 1.129e-08),
+    "LogisticBasisFunc": (1.088e-07, 2.736e-07),
+    "IndependentOutputs": (4.773e-07, 4.564e-07), "SplitKern": (2.162e-07, 2.563e-05),
+    "DEtime": (2.123e-07, 5.686e-06), "MultioutputKern": (1.637e-07, 2.662e-06),
+    "PeriodicExponential": (3.860e-07, 8.830e-07),
+    "PeriodicMatern32": (4.346e-07, 9.146e-07), "PeriodicMatern52": (5.322e-07, 6.758e-06),
+    "Integral": (2.633e-07, 2.623e-06), "IntegralLimits": (2.850e-07, 3.082e-06),
+    "MultidimensionalIntegralLimits": (4.492e-07, 2.388e-06),
+    "ODE_UY": (3.182e-07, 4.033e-06), "ODE_UYC": (2.441e-07, 2.420e-05),
+    "ODE_t": (2.111e-07, 1.707e-05), "ODE_st": (1.464e-07, 1.025e-06),
+    "EQ_ODE1": (3.377e-07, 8.966e-07), "EQ_ODE2": (1.498e-02, 8.409e-02),
+    "Symbolic": (1.054e-07, 9.615e-07), "MLP": (3.077e-07, 8.773e-06),
+    "Poly": (1.753e-07, 4.012e-07), "Brownian": (3.623e-08, 8.630e-08),
+    "Spline": (1.761e-07, 2.312e-06), "LinearFull": (6.479e-08, 2.422e-07),
+    "WhiteHeteroscedastic": (2.108e-08, 4.033e-08), "Fixed": (1.074e-07, 4.887e-07),
+}
+ZOO_K_FLOOR = 1e-5
+ZOO_GRAD_FLOOR = 1e-4
+ZOO_LIMITS = {name: (max(10 * k, ZOO_K_FLOOR), max(10 * g, ZOO_GRAD_FLOOR))
+              for name, (k, g) in ZOO_JAX_F32.items()}
+ZOO_BLOCK_ROWS = 512          # leg 5's row blocks for the LFM kernels' gradient
+ZOO_BLOCKWISE = ("EQ_ODE1", "EQ_ODE2")
+
+
+def _now():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _f64(obj):
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.double(), obj)
+
+
+def _lml_and_terms(name, fitted, lml_limit, grad_limit, failures):
+    """The -LML at the fitted point, f32 against f64 at the jitter the f32
+    posterior's ladder chose (the same Ky), and the gradient there against its
+    terms; the f32 -LML and gradient through the plain K (no B1 / B2) are
+    printed beside them. Appends to ``failures`` what is past its limit."""
+    import dataclasses
+
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.models.fit import make_objective
+    from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+
+    packer = make_packer(fitted)
+    obj = make_objective(packer)
+    with torch.no_grad():
+        post = fitted.inference()
+        jitter = float(post.jitter)
+        f64m = _f64(fitted)
+        same_ky = dataclasses.replace(f64m, likelihood_variance=f64m.likelihood_variance + jitter)
+        f32 = float(obj(packer.pack(fitted)[None], fitted)[0])
+        f64 = float(obj(packer.pack(f64m)[None], f64m)[0])
+        f64j = float(obj(packer.pack(same_ky)[None], same_ky)[0])
+    rel, rel_j = abs(f32 - f64) / abs(f64), abs(f32 - f64j) / abs(f64j)
+    grad = _print_fitted_gradient(fitted, f64m)
+    config.use_cuda_kernels = False
+    try:
+        with torch.no_grad():
+            plain = float(obj(packer.pack(fitted)[None], fitted)[0])
+        grad_plain = _print_fitted_gradient(fitted, f64m, quiet=True)
+    finally:
+        config.use_cuda_kernels = "auto"
+    print(f"# zoo, {name}: -LML at the fitted point f32 {f32:.6f}, f64 {f64:.6f} (rel "
+          f"{rel:.3e}); the f32 ladder's rung {int(post.rung)}, jitter {jitter:.3g}: f64 at "
+          f"that jitter {f64j:.6f} (rel {rel_j:.3e}, limit {lml_limit:g}); gradient "
+          f"{grad:.3e} of its terms (limit {grad_limit:g}); through the plain K: -LML rel "
+          f"{abs(plain - f64j) / abs(f64j):.3e}, gradient {grad_plain:.3e}")
+    if not rel_j <= lml_limit:
+        failures.append(f"{name}: -LML f32 vs f64 rel {rel_j:.3e} > {lml_limit:g}")
+    if not grad <= grad_limit:
+        failures.append(f"{name}: gradient f32 vs f64 {grad:.3e} of its terms > {grad_limit:g}")
+    return rel_j, grad
+
+
+def _check_predictions(name, preds, failures):
+    for i, (mu, var) in enumerate(preds):
+        if not (bool(torch.isfinite(mu).all()) and bool((var > 0).all())
+                and bool(torch.isfinite(var).all())):
+            failures.append(f"{name}: prediction {i} has a non-finite mean or a variance <= 0")
+
+
+def _leg_icm(n, restarts, steps, where, failures):
+    """Leg 1: GPCoregionalizedRegression, 3 tasks, ARD Matern52 on 6 inputs,
+    rank 1, noise 0.1: a restarts x steps fit, the posterior, mean and
+    variance of each task at 1000 points."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves
+
+    Xs, Ys = workload.icm_data(n=n)
+    model = workload.icm_model(Xs, Ys, **where)
+    _zero_counts()
+    t0 = _now()
+    res = workload.icm_fit(model, restarts=restarts, steps=steps,
+                           generator=torch.Generator(device=model.model.X.device).manual_seed(0))
+    t1 = _now()
+    post = model.model.inference(precompute_inverse=True)
+    t2 = _now()
+    Xt = np.random.default_rng(1).uniform(-2.0, 2.0, size=(1000, Xs[0].shape[1]))
+    preds = [model.predict(Xt, task, posterior=post) for task in range(len(Xs))]
+    t3 = _now()
+    launches = _read_counts()
+    fitted = model.model
+    coreg = fitted.kern.parts[1]
+    print(f"# zoo, leg 1 ICM (N={sum(len(x) for x in Xs)} = {' + '.join(str(len(x)) for x in Xs)}, "
+          f"D={Xs[0].shape[1]} + task, Matern52 ARD x Coregionalize rank 1, "
+          f"{fitted.X.dtype}, {restarts} x {steps}): fit {t1 - t0:.3f} s, posterior "
+          f"{t2 - t1:.3f} s, predict 3 x 1000 {t3 - t2:.3f} s; launches {launches}; "
+          f"num_ls {res.num_ls.tolist()}, f {res.f.tolist()}; B {coreg.B.tolist()}")
+    print(f"# zoo, leg 1 fitted leaves {json.dumps({k: v.tolist() for k, v in named_leaves(fitted) if k not in ('X', 'Y')})}")
+    _gate_launches("zoo leg 1 (ICM)", launches, ("B1", "B2", "B3"))
+    _check_predictions("zoo leg 1 (ICM)", preds, failures)
+    _lml_and_terms("leg 1 ICM", fitted, ICM_LML_LIMIT, ICM_GRAD_LIMIT, failures)
+    return launches, fitted, Xs
+
+
+def _leg_co2(n, restarts, steps, where, failures):
+    """Leg 2: an exact GP at N = 4096 on 1-D times with RBF + StandardPeriodic
+    * RBF + RatQuad + Linear + Bias."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves
+
+    X, Y = workload.co2_data(n=n)
+    model = workload.co2_model(X, Y, **where)
+    _zero_counts()
+    t0 = _now()
+    fitted, res = workload.fit(model, restarts=restarts, steps=steps,
+                               generator=torch.Generator(device=model.X.device).manual_seed(0))
+    t1 = _now()
+    post = fitted.inference(precompute_inverse=True)
+    t2 = _now()
+    Xt = torch.as_tensor(np.linspace(0.0, 22.0, 1000)[:, None], dtype=fitted.X.dtype,
+                         device=fitted.X.device)
+    preds = [fitted.predict(Xt, posterior=post)]
+    t3 = _now()
+    launches = _read_counts()
+    print(f"# zoo, leg 2 Mauna Loa composition (N={n}, 1-D, RBF + StdPeriodic * RBF + RatQuad "
+          f"+ Linear + Bias, {fitted.X.dtype}, {restarts} x {steps}): fit {t1 - t0:.3f} s, "
+          f"posterior {t2 - t1:.3f} s, predict 1000 {t3 - t2:.3f} s; launches {launches}; "
+          f"num_ls {res.num_ls.tolist()}, f {res.f.tolist()}")
+    print(f"# zoo, leg 2 fitted leaves {json.dumps({k: v.tolist() for k, v in named_leaves(fitted) if k not in ('X', 'Y')})}")
+    _gate_launches("zoo leg 2 (composition)", launches, ("B1", "B2", "B3"))
+    _check_predictions("zoo leg 2 (composition)", preds, failures)
+    _lml_and_terms("leg 2 composition", fitted, CO2_LML_LIMIT, CO2_GRAD_LIMIT, failures)
+    return launches
+
+
+def _value_and_grad(model):
+    """(-LML, its gradient in the optimizer's coordinates), float64 numbers."""
+    from gaussian_process_optimization_tpu_torch.models.fit import make_objective
+    from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+
+    packer = make_packer(model)
+    u = packer.pack(model)[None].clone().requires_grad_(True)
+    f = make_objective(packer)(u, model)[0]
+    (g,) = torch.autograd.grad(f, u)
+    return float(f.detach()), g[0].double()
+
+
+def _f32_vs_f64(name, model, lml_limit, grad_limit, failures):
+    """-LML and gradient f32 vs f64; returns the f32 evaluation's seconds."""
+    t0 = _now()
+    f32, g32 = _value_and_grad(model)
+    seconds = _now() - t0
+    f64, g64 = _value_and_grad(_f64(model))
+    rel = abs(f32 - f64) / abs(f64)
+    grel = float((g32 - g64).abs().max() / g64.abs().max())
+    print(f"# zoo, {name}: at the start -LML f32 {f32:.6f} vs f64 {f64:.6f} (rel {rel:.3e}, "
+          f"limit {lml_limit:g}), gradient rel {grel:.3e} of max |g64| {float(g64.abs().max()):.4g} "
+          f"(limit {grad_limit:g})")
+    if not rel <= lml_limit:
+        failures.append(f"{name}: -LML f32 vs f64 rel {rel:.3e} > {lml_limit:g}")
+    if not grel <= grad_limit:
+        failures.append(f"{name}: gradient f32 vs f64 rel {grel:.3e} > {grad_limit:g}")
+    return seconds
+
+
+def _leg_grid(side, steps, where, failures):
+    """Leg 3: GPGridRegression on a side x side grid, an RBF per axis."""
+    from gaussian_process_optimization_tpu_torch import workload
+
+    axes, Y = workload.grid_data(side=side)
+    model = workload.grid_model(axes, Y, **where)
+    _f32_vs_f64(f"leg 3 grid {side} x {side}", model, GRID_LML_LIMIT, GRID_GRAD_LIMIT, failures)
+    m64 = _f64(model)
+    with torch.no_grad():
+        g64 = float(m64.log_marginal_likelihood())
+        d64 = float(workload.grid_dense(m64).log_marginal_likelihood())
+    rel = abs(g64 - d64) / abs(d64)
+    print(f"# zoo, leg 3: float64 -LML grid {-g64:.10f} vs dense GP {-d64:.10f} (rel {rel:.3e}, "
+          f"limit {GRID_DENSE_LIMIT:g})")
+    if not rel <= GRID_DENSE_LIMIT:
+        failures.append(f"grid: float64 -LML against the dense GP rel {rel:.3e}")
+    t0 = _now()
+    fitted, res = workload.grid_fit(model, steps=steps)
+    t1 = _now()
+    Xt = torch.rand(1000, 2, generator=torch.Generator().manual_seed(0)).double().numpy()
+    mu, var = fitted.predict(Xt)
+    t2 = _now()
+    with torch.no_grad():
+        before, after = -float(model.log_marginal_likelihood()), -float(fitted.log_marginal_likelihood())
+    print(f"# zoo, leg 3 fit 1 x {steps} {t1 - t0:.3f} s ({int(res.num_ls.sum())} trials), "
+          f"-LML {before:.4f} -> {after:.4f}; predict 1000 {t2 - t1:.3f} s; lengthscales "
+          f"{[float(k.lengthscale) for k in fitted.kerns]}, noise {float(fitted.likelihood_variance):.5g}")
+    if not (after < before and math.isfinite(after)):
+        failures.append("grid: the fit did not lower the -LML")
+    _check_predictions("grid", [(mu, var)], failures)
+
+
+def _leg_state_space(n, steps, where, failures):
+    """Leg 4: StateSpaceGP with Matern32 + StandardPeriodic * Matern32."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.kernels import Matern32
+    from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
+    from gaussian_process_optimization_tpu_torch.models.state_space import StateSpaceGP
+
+    t, y = workload.state_space_data(n=n)
+    model = workload.state_space_model(t, y, **where)
+    seconds = _f32_vs_f64("leg 4 state space", model, SS_LML_LIMIT, SS_GRAD_LIMIT, failures)
+    print(f"# zoo, leg 4 state space (N={n}, {model.family}, order {model.order}, state "
+          f"dimension {2 + 2 * 2 * (model.order + 1)}, {model.X.dtype}): one -LML + gradient "
+          f"{seconds:.3f} s")
+    # Matern32 alone in float64 is exact: its -LML equals the dense GP's
+    m = StateSpaceGP.create(t, y, family="matern32", variance=0.5, lengthscale=5.0,
+                            noise_var=0.01, dtype=torch.float64, device=model.X.device)
+    dense = GPRegression.create(t[:, None], y, kernel=Matern32.create(
+        1, variance=0.5, lengthscale=5.0, dtype=torch.float64, device=model.X.device),
+        noise_var=0.01 - 1e-8, dtype=torch.float64, device=model.X.device)
+    with torch.no_grad():
+        s64, d64 = float(m.log_marginal_likelihood()), float(dense.log_marginal_likelihood())
+    rel = abs(s64 - d64) / abs(d64)
+    print(f"# zoo, leg 4: Matern32 float64 -LML state space {-s64:.10f} vs dense GP "
+          f"{-d64:.10f} (rel {rel:.3e}, limit {SS_DENSE_LIMIT:g})")
+    if not rel <= SS_DENSE_LIMIT:
+        failures.append(f"state space: float64 Matern32 -LML against the dense GP rel {rel:.3e}")
+    t2 = _now()
+    from gaussian_process_optimization_tpu_torch.models import fit as fit_module
+
+    fitted, res = fit_module.fit(model, num_restarts=1, maxiter=steps)
+    t3 = _now()
+    mu, var = fitted.predict(t[:16] + 0.05)
+    t4 = _now()
+    with torch.no_grad():
+        before = -float(model.log_marginal_likelihood())
+        after = -float(fitted.log_marginal_likelihood())
+    print(f"# zoo, leg 4 fit 1 x {steps} (cut from 30: depth) {t3 - t2:.3f} s "
+          f"({int(res.num_ls.sum())} trials), -LML {before:.4f} -> {after:.4f}; RTS predict at "
+          f"16 points {t4 - t3:.3f} s")
+    if not (after < before and math.isfinite(after)):
+        failures.append("state space: the fit did not lower the -LML")
+    _check_predictions("state space", [(mu, var)], failures)
+
+
+def _leaf_grads(kern, X, W, rows=None):
+    """{path: d sum(W * K) / d leaf}; ``rows`` builds K a block of rows at a
+    time (K(X[b], X) is those rows of K(X) for the kernels it is used on)."""
+    from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves, replace_leaves
+
+    named = named_leaves(kern)
+    leaves = [t.detach().clone().requires_grad_(True) for _, t in named]
+    k = replace_leaves(kern, leaves)
+    total = [torch.zeros_like(t) for t in leaves]
+    blocks = [slice(None)] if rows is None else [slice(i, i + rows)
+                                                 for i in range(0, X.shape[0], rows)]
+    for b in blocks:
+        K = k.K(X) if rows is None else k.K(X[b], X)
+        gs = torch.autograd.grad(torch.sum(W[b] * K), leaves, allow_unused=True)
+        total = [acc if g is None else acc + g for acc, g in zip(total, gs)]
+        del K
+    return {path: g for (path, _), g in zip(named, total)}
+
+
+def _leg_kernels(n, where, failures):
+    """Leg 5: every other zoo kernel at N rows: K and each leaf's gradient of
+    sum(W * K), float32 against float64."""
+    from gaussian_process_optimization_tpu_torch import workload
+
+    readings = {}
+    t0 = _now()
+    cases = workload.zoo_cases(n=n, **where)
+    cases64 = {name: (k, X) for name, k, X in workload.zoo_cases(n=n, dtype=torch.float64,
+                                                                  device=cases[0][2].device)}
+    for name, kern, X in cases:
+        t1 = _now()
+        k64, X64 = cases64[name]
+        rows = ZOO_BLOCK_ROWS if name in ZOO_BLOCKWISE else None
+        with torch.no_grad():
+            if rows is None:
+                K32, K64 = kern.K(X), k64.K(X64)
+            else:
+                K32 = torch.cat([kern.K(X[i:i + rows], X) for i in range(0, n, rows)])
+                K64 = torch.cat([k64.K(X64[i:i + rows], X64) for i in range(0, n, rows)])
+        kerr = float((K32.double() - K64).abs().max() / K64.abs().max().clamp(min=1e-300))
+        finite = bool(torch.isfinite(K32).all())
+        del K32, K64
+        W = torch.randn(n, n, generator=torch.Generator(device=X.device).manual_seed(1),
+                        dtype=X.dtype, device=X.device)
+        W = 0.5 * (W + W.mT)
+        g32 = _leaf_grads(kern, X, W, rows)
+        g64 = _leaf_grads(k64, X64, W.double(), rows)
+        del W
+        gerr = 0.0
+        for path, g in g64.items():
+            scale = float(g.abs().max())
+            if scale > 0:
+                gerr = max(gerr, float((g32[path].double() - g).abs().max()) / scale)
+            finite = finite and bool(torch.isfinite(g32[path]).all())
+        klim, glim = ZOO_LIMITS[name]
+        readings[name] = (kerr, gerr)
+        print(f"# zoo, leg 5 {name} (N={n}{', blocks of ' + str(rows) + ' rows' if rows else ''}): "
+              f"K rel {kerr:.3e} (limit {klim:g}), gradient rel {gerr:.3e} (limit {glim:g}) "
+              f"over {len(g64)} leaves; {_now() - t1:.2f} s")
+        if not finite:
+            failures.append(f"{name}: non-finite K or gradient in float32")
+        if not (kerr <= klim and gerr <= glim):
+            failures.append(f"{name}: K rel {kerr:.3e} / gradient rel {gerr:.3e} past "
+                            f"({klim:g}, {glim:g})")
+    print(f"# zoo, leg 5: {len(cases)} kernels in {_now() - t0:.1f} s")
+    return readings
+
+
+def _zoo_kernel_rows(dev, n=4096, lanes=5):
+    """B1 and B2 at the zoo legs' shapes: Matern52 ARD on 6 columns read
+    through an active_dims slice of 7 (leg 1), RBF and RatQuad on one
+    (leg 2, padded to 4), each beside its plain version and its byte bound."""
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    X7 = 4 * torch.rand(n, 7, generator=gen, device=dev) - 2
+    X6 = X7[:, :6].contiguous()[None]        # what Kernel._slice hands the wrapper
+    X1 = 20 * torch.rand(1, n, 1, generator=gen, device=dev)
+    rows = {}
+    for tag, X, fam, ard, p in (
+            ("Matern52 ARD D=6 (7-column slice)", X6, "matern52", True,
+             _matern_rows(dev, lanes, gen)),
+            ("RBF D=1", X1, "rbf", False, _rbf_rows(dev, lanes, gen)),
+            ("RatQuad D=1", X1, "ratquad", False, _rbf_rows(dev, lanes, gen))):
+        if fam == "ratquad":
+            p[:, 1] = 1.0
+        got = ck.stationary_k_build(X, X, p, fam, ard)
+        _close(f"B1 {tag}", got, ck.k_build_plain(X, X, p, fam, ard), rtol=2e-5, atol=2e-6)
+        ms = _time_ms(lambda: ck.stationary_k_build(X, X, p, fam, ard))
+        plain = _time_ms(lambda: ck.k_build_plain(X, X, p, fam, ard), calls=5)
+        bound = _bound(_nbytes(X, p, got), got.numel() * _k_flops(X.shape[-1]))
+        print(f"# B1 stationary_k_build {lanes}x{n}x{n} {tag}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        rows[f"B1 {tag}"] = {"ms": ms, "plain_ms": plain, **bound}
+        G = (2 * torch.rand(lanes, n, n, generator=gen, device=dev) - 0.5)
+        dp, _, _ = ck.stationary_k_backward(X, X, p, G, fam, ard, False, False, True)
+        want, _, _ = ck.k_backward_plain(X.double(), X.double(), p.double(), G.double(), fam,
+                                         ard, False, False, True)
+        _close(f"B2 {tag}", dp, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+        ms = _time_ms(lambda: ck.stationary_k_backward(X, X, p, G, fam, ard, False, False, True))
+        plain = _time_ms(lambda: ck.k_backward_plain(X, X, p, G, fam, ard, False, False, True),
+                         calls=5)
+        bound = _bound(_nbytes(X, p, G, dp), G.numel() * _k_bwd_flops(X.shape[-1]))
+        print(f"# B2 stationary_k_backward {lanes}x{n}x{n} {tag} (parameter gradients): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})")
+        rows[f"B2 {tag}"] = {"ms": ms, "plain_ms": plain, **bound}
+        del got, G, dp, want
+    return rows
+
+
+def phase_zoo(dev=None, n=4096, side=64, restarts=5, steps=30, ss_steps=SS_FIT_STEPS,
+              where=None):
+    """Phase 10: the kernel zoo and the multi-output, grid and state-space
+    models, float32 on the card, through their entry points with no device
+    given. Legs 1 and 2 zero the launch counts just before and read them just
+    after; the sum is returned. Every leg runs; the phase fails at its end if
+    any check failed."""
+    where = {} if where is None else where
+    failures = []
+    t0 = time.perf_counter()
+    split = {}
+    if dev is not None:
+        _zoo_kernel_rows(dev)
+    t = _now()
+    icm, _, _ = _leg_icm(n, restarts, steps, where, failures)
+    split["ICM"] = _now() - t
+    t = _now()
+    co2 = _leg_co2(n, restarts, steps, where, failures)
+    split["composition"] = _now() - t
+    t = _now()
+    _leg_grid(side, steps, where, failures)
+    split["grid"] = _now() - t
+    t = _now()
+    _leg_state_space(n, ss_steps, where, failures)
+    split["state space"] = _now() - t
+    t = _now()
+    _leg_kernels(n, where, failures)
+    split["kernels"] = _now() - t
+    total = {k: icm[k] + co2[k] for k in icm}
+    print(f"# zoo: phase 10 took {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in split.items())}); launches {total}")
+    if failures:
+        raise AssertionError("zoo: " + "; ".join(failures))
+    return total
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
@@ -1841,10 +2305,11 @@ def main():
     surrogate_launches = phase_surrogates(dev, fitted, post)
     approximate_launches = phase_approximate(fitted)
     del fitted, post
+    zoo_launches = phase_zoo(dev)
     phase_loop_protocol()
-    # B1 and B2 run on the main, composite and surrogate paths, B4 on the thesis
-    # path, B3 on all but the sparse leg; "launches" is the main path's count
-    # (B4: the thesis path's)
+    # B1 and B2 run on the main, composite, surrogate, approximate and zoo paths,
+    # B4 on the thesis path, B3 on all but the sparse leg; "launches" is the main
+    # path's count (B4: the thesis path's)
     launches["B4"] = thesis_launches["B4"]
     sources = {
         "B1": ("stationary_k_build", "gaussian_process_optimization_tpu_torch/csrc/stationary_k.cu",
@@ -1866,6 +2331,7 @@ def main():
                         "launches_composite": composite_launches[key],
                         "launches_surrogates": surrogate_launches[key],
                         "launches_approximate": approximate_launches[key],
+                        "launches_zoo": zoo_launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_us": r["bound_us"], "bound_by": r["bound_by"],

@@ -25,6 +25,16 @@ warp's under ``warp.`` (``d a b c`` for the tanh warp; ``a b lo hi`` for the
 input warp). An MCMC surrogate is its point-estimate GP's leaves and the JAX
 model's kept ``hmc_samples``.
 
+Any kernel of the zoo, and any ``Add`` / ``Prod`` of them, is named by a spec
+(:func:`kernel_from_leaves`): ``{"class": "StandardPeriodic", <static fields>}``,
+its sub-kernels under their field names (``"parts": [spec, ...]`` for a
+combination or ``Hierarchical``, ``"base"``, ``"kern"``, ``"split"``,
+``"kernels"``), its leaves under the same paths as the JAX model's
+(``kern.parts.1.W``). The coregionalized, grid and state-space models are
+carried by ``multioutput_from_leaves`` (its GP's leaves), ``grid_from_leaves``
+(``kerns.<i>.``, ``likelihood_variance``, ``axes.<i>``, ``Y``) and
+``state_space_from_leaves``.
+
 The approximate-inference models' leaves: an SVGP's ``kern.``, ``likelihood_variance``,
 ``Z``, ``q_mu``, ``q_sqrt_flat``, ``num_data``; a Laplace GP's ``kern.``, its
 likelihood's under ``likelihood.`` (``deg_free sigma2`` for the Student-t, and so
@@ -41,16 +51,19 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from . import kernels as kernel_module
 from .config import resolve_device, resolve_dtype
-from .kernels.base import Add, Prod
-from .kernels.gower import Gower
+from .kernels.base import Kernel
 from .kernels.stationary import FAMILY_CLASSES
 from .models import likelihoods as likelihood_module
 from .models import mean_functions
 from .models.classification import GPClassification, SparseGPClassification
 from .models.gp import GPRegression
 from .models.laplace import GPLaplace
+from .models.gp_grid import GPGridRegression
 from .models.mcmc_bo_model import GPModel_MCMC
+from .models.multioutput import GPCoregionalizedRegression
+from .models.state_space import StateSpaceGP
 from .models.sparse import SparseGPRegression
 from .models.svgp import SVGP
 from .models.tp import TPRegression
@@ -62,15 +75,82 @@ _MEAN_FIELDS = {"Constant": ("C",), "LinearMapping": ("A",),
                 "MLPMapping": ("W1", "b1", "W2", "b2")}
 
 
+# static flags of the port that the JAX kernels carry in their leaves' ranks
+_RANK_FLAGS = {"ard": ("variances", "weight_variance"), "ard1": ("period",),
+               "ard2": ("lengthscale",)}
+
+
+def kernel_from_leaves(leaves: Mapping[str, np.ndarray], spec: Mapping, prefix: str = "kern.",
+                       dtype=None, device=None) -> Kernel:
+    """The kernel named by ``spec`` with its leaves from ``leaves[prefix + path]``.
+    ``spec["class"]`` is a class name of ``kernels`` (``"Matern52"``,
+    ``"Coregionalize"``, ``"Prod"``, ...); its other keys are static fields
+    (``input_dim``, ``active_dims``, ``order``, ``n_freq``, ``output_dim``, a
+    ``SymbolicKernel``'s ``expr`` as a torch callable, ...) or sub-kernel specs.
+    ``device`` None means the card."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+    cls = getattr(kernel_module, spec["class"])
+
+    def t(key):
+        return torch.tensor(np.asarray(leaves[key]), dtype=dtype, device=device)
+
+    def sub(value, path):
+        if isinstance(value, Mapping) and "class" in value:
+            return kernel_from_leaves(leaves, value, path + ".", dtype=dtype, device=device)
+        return tuple(sub(v, f"{path}.{i}") for i, v in enumerate(value))
+
+    fields = {}
+    for f in dataclasses.fields(cls):
+        key = prefix + f.name
+        value = spec.get(f.name)
+        if isinstance(value, (list, tuple)) and value and isinstance(value[0], Mapping):
+            fields[f.name] = sub(value, key)
+        elif isinstance(value, Mapping) and "class" in value:
+            fields[f.name] = sub(value, key)
+        elif key in leaves:
+            fields[f.name] = t(key)
+        elif f.name == "params":
+            names = sorted(k[len(key) + 1:] for k in leaves if k.startswith(key + "."))
+            fields["params"] = {n: t(f"{key}.{n}") for n in names}
+        elif value is not None:
+            fields[f.name] = (tuple(value) if isinstance(value, list) else value)
+    for flag, names in _RANK_FLAGS.items():
+        if flag in {f.name for f in dataclasses.fields(cls)} and flag not in spec:
+            leaf = next(fields[n] for n in names if n in fields)
+            fields[flag] = leaf.ndim >= 1
+    if cls is kernel_module.SymbolicKernel:
+        fields["shapes"] = tuple((k, tuple(v.shape)) for k, v in fields["params"].items())
+    if "input_dim" not in fields:
+        parts = [v for v in fields.values() if isinstance(v, Kernel)] + [
+            k for v in fields.values() if isinstance(v, tuple) for k in v
+            if isinstance(k, Kernel)]
+        if parts:
+            fields["input_dim"] = max(p.input_dim for p in parts)
+    return cls(**fields)
+
+
+def _composite_spec(composite, d):
+    """The spec of ``gp_from_leaves``'s ``composite`` form."""
+    parts = []
+    for part in composite["parts"]:
+        dims = part.get("active_dims")
+        parts.append({"class": FAMILY_CLASSES[part["family"]].__name__,
+                      "input_dim": part.get("input_dim", d if dims is None else len(dims)),
+                      "active_dims": None if dims is None else [int(x) for x in dims]})
+    return {"class": {"add": "Add", "prod": "Prod"}[composite["op"]], "parts": parts}
+
+
 def gp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
                    gower: Mapping | None = None, composite: Mapping | None = None,
-                   mean_function: str | None = None, dtype=None,
-                   device=None) -> GPRegression:
-    """``gower``: ``{"cont_dims": ..., "disc_dims": ..., "gpy_compat": ...}`` for a
+                   mean_function: str | None = None, kernel: Mapping | None = None,
+                   dtype=None, device=None) -> GPRegression:
+    """``kernel``: a spec (:func:`kernel_from_leaves`) of any zoo kernel.
+    ``gower``: ``{"cont_dims": ..., "disc_dims": ..., "gpy_compat": ...}`` for a
     Gower kernel over a ``family`` base (the BO wrappers' kernel).
     ``composite``: ``{"op": "add" | "prod", "parts": [{"family": ...,
     "active_dims": ... or None, "input_dim": ... (optional)}, ...]}`` for a
-    combination of stationary parts. Neither: a plain ``family`` kernel.
+    combination of stationary parts. None of these: a plain ``family`` kernel.
     ``mean_function``: ``"Constant"``, ``"LinearMapping"`` or ``"MLPMapping"``
     when the leaves carry one. ``device`` None means the card."""
     device = resolve_device(device)
@@ -79,31 +159,19 @@ def gp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
     def t(key):
         return torch.tensor(np.asarray(leaves[key]), dtype=dtype, device=device)
 
-    def stationary(prefix, fam, input_dim, active_dims=None):
-        fields = {"variance": t(prefix + "variance"), "lengthscale": t(prefix + "lengthscale")}
-        if prefix + "power" in leaves:
-            fields["power"] = t(prefix + "power")
-        dims = None if active_dims is None else tuple(int(d) for d in active_dims)
-        return FAMILY_CLASSES[fam](input_dim=input_dim, active_dims=dims, **fields)
-
     X = t("X")
     d = X.shape[-1]
-    if composite is not None:
-        parts = tuple(
-            stationary(f"kern.parts.{i}.", part["family"],
-                       part.get("input_dim", d if part.get("active_dims") is None
-                                else len(part["active_dims"])),
-                       part.get("active_dims"))
-            for i, part in enumerate(composite["parts"]))
-        cls = {"add": Add, "prod": Prod}[composite["op"]]
-        kern = cls(parts=parts, input_dim=max(p.input_dim for p in parts))
-    elif gower is not None:
-        kern = Gower(input_dim=d, base=stationary("kern.base.", family, d),
-                     ranges=t("kern.ranges"), cont_dims=tuple(gower["cont_dims"]),
-                     disc_dims=tuple(gower["disc_dims"]),
-                     gpy_compat=bool(gower["gpy_compat"]))
-    else:
-        kern = stationary("kern.", family, d)
+    if kernel is None and composite is not None:
+        kernel = _composite_spec(composite, d)
+    elif kernel is None and gower is not None:
+        kernel = {"class": "Gower", "input_dim": d,
+                  "cont_dims": tuple(int(i) for i in gower["cont_dims"]),
+                  "disc_dims": tuple(int(i) for i in gower["disc_dims"]),
+                  "gpy_compat": bool(gower["gpy_compat"]),
+                  "base": {"class": FAMILY_CLASSES[family].__name__, "input_dim": d}}
+    elif kernel is None:
+        kernel = {"class": FAMILY_CLASSES[family].__name__, "input_dim": d}
+    kern = kernel_from_leaves(leaves, kernel, dtype=dtype, device=device)
     mf = None
     if mean_function is not None:
         fields = {name: t("mean_function." + name) for name in _MEAN_FIELDS[mean_function]}
@@ -116,6 +184,43 @@ def gp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "matern52",
                         mean_function=mf, heteroscedastic=noise.ndim == 1,
                         jitter_hint=None if hint is None else torch.tensor(
                             np.asarray(hint), dtype=torch.float32, device=device))
+
+
+def multioutput_from_leaves(leaves: Mapping[str, np.ndarray], kernel: Mapping,
+                            num_outputs: int, dtype=None,
+                            device=None) -> GPCoregionalizedRegression:
+    """A ``GPCoregionalizedRegression`` from its GP's leaves (``kern.``,
+    ``likelihood_variance``, ``X``, ``Y``) and its kernel's spec."""
+    gp = gp_from_leaves(leaves, kernel=kernel, dtype=dtype, device=device)
+    return GPCoregionalizedRegression.from_model(gp, num_outputs)
+
+
+def grid_from_leaves(leaves: Mapping[str, np.ndarray], kernels, dtype=None,
+                     device=None) -> GPGridRegression:
+    """A ``GPGridRegression``; ``kernels`` one spec per axis."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+
+    def t(key):
+        return torch.tensor(np.asarray(leaves[key]), dtype=dtype, device=device)
+
+    return GPGridRegression(
+        kerns=tuple(kernel_from_leaves(leaves, s, f"kerns.{i}.", dtype=dtype, device=device)
+                    for i, s in enumerate(kernels)),
+        likelihood_variance=t("likelihood_variance"),
+        axes=tuple(t(f"axes.{i}") for i in range(len(kernels))), Y=t("Y"))
+
+
+def state_space_from_leaves(leaves: Mapping[str, np.ndarray], family="matern32", order: int = 7,
+                            dtype=None, device=None) -> StateSpaceGP:
+    """A ``StateSpaceGP`` of ``family`` (a name, or a tuple for a sum)."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+    return StateSpaceGP(**{k: torch.tensor(np.asarray(leaves[k]), dtype=dtype, device=device)
+                           for k in ("variance", "lengthscale", "noise_variance", "period",
+                                     "lengthscale_damp", "X", "Y")},
+                        family=tuple(family) if isinstance(family, list) else family,
+                        order=order)
 
 
 def leaves_of(model) -> dict[str, np.ndarray]:

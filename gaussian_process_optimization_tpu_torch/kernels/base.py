@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..config import resolve_device, resolve_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +38,12 @@ class Kernel:
 
     def Kdiag(self, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def _pairwise_diag(self, X):
+        """O(N) diagonal from single-pair K evaluations, ``lanes + (N,)`` (the
+        reference's ``_pairwise_diag``): for kernels whose closed forms live
+        in K, the diagonal without the O(N^2) full K."""
+        return torch.func.vmap(lambda a: self.K(a[None], a[None])[..., 0, 0])(X).movedim(0, -1)
 
     # combination algebra
     def __add__(self, other):
@@ -60,6 +69,8 @@ class Kernel:
                 return v._leaf_like()
             if isinstance(v, tuple) and v and isinstance(v[0], Kernel):
                 return v[0]._leaf_like()
+            if isinstance(v, dict) and v:
+                return next(iter(v.values()))
         raise ValueError("kernel has no tensor field")
 
     def input_sensitivity(self, summarize=True):
@@ -105,6 +116,33 @@ class Kernel:
 
     def _grad_X2_at_diag(self, x):
         return torch.func.jacfwd(lambda b: self._k_pair(x, b))(x)
+
+
+def grid(v: torch.Tensor) -> torch.Tensor:
+    """A per-lane scalar (shape ``lanes``) shaped to broadcast against
+    ``lanes + (N, M)``."""
+    return v[..., None, None]
+
+
+def placement(dtype=None, device=None) -> dict:
+    """``dtype`` and ``device`` of a kernel built by ``create``: the card and
+    float32 unless named (``config.resolve_device`` / ``resolve_dtype``)."""
+    device = resolve_device(device)
+    return {"dtype": resolve_dtype(dtype, device), "device": device}
+
+
+def as_leaf(v, like: torch.Tensor | None = None, dtype=None, device=None) -> torch.Tensor:
+    """A hyperparameter given as a number, array or tensor, as a tensor of the
+    dtype and device of ``like`` (or the ones given)."""
+    if like is not None:
+        dtype, device = like.dtype, like.device
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(v, dtype=float), dtype=dtype, device=device)
+
+
+def dims_of(active_dims):
+    return tuple(int(d) for d in active_dims) if active_dims is not None else None
 
 
 def _product(terms):

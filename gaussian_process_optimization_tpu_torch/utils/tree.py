@@ -5,7 +5,8 @@ non-static dataclass field is a child, in declaration order. Here models are
 plain frozen dataclasses of tensors, and these helpers walk the same order:
 tensor fields are leaves, nested dataclasses are recursed into, a tuple or list
 is walked item by item in order (``Add.parts``: path ``kern.parts.0.variance``),
-and everything else (ints, None, bools, tuples of ints) is static.
+a dict by its sorted keys, as JAX flattens one (``params.variance``), and
+everything else (ints, None, bools, tuples of ints) is static.
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ def named_leaves(obj: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
         elif isinstance(v, (tuple, list)):
             for i, item in enumerate(v):
                 visit(item, f"{path}.{i}")
+        elif isinstance(v, dict):
+            for k in sorted(v):
+                visit(v[k], f"{path}.{k}")
 
     for f in dataclasses.fields(obj):
         visit(getattr(obj, f.name), prefix + f.name)
@@ -48,13 +52,16 @@ def replace_leaves(obj: Any, leaves: list[torch.Tensor]) -> Any:
             return rebuild(v)
         if isinstance(v, (tuple, list)):
             return type(v)(rebuild_value(item) for item in v)
+        if isinstance(v, dict):
+            new = {k: rebuild_value(v[k]) for k in sorted(v)}
+            return {k: new[k] for k in v}
         return v
 
     def rebuild(o):
         changes = {}
         for f in dataclasses.fields(o):
             v = getattr(o, f.name)
-            if isinstance(v, torch.Tensor) or _is_node(v) or isinstance(v, (tuple, list)):
+            if isinstance(v, (torch.Tensor, tuple, list, dict)) or _is_node(v):
                 changes[f.name] = rebuild_value(v)
         return dataclasses.replace(o, **changes)
 

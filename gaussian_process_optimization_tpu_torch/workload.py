@@ -39,6 +39,15 @@ sparse recipe with the example's 300 Adam steps at batch 2048 and learning rate
 targets with 5% of rows lifted by 5 standard deviations (the robust-regression
 gallery's outliers).
 
+The zoo slice (``icm_data`` / ``icm_model`` / ``icm_fit``, ``co2_data`` /
+``co2_model``, ``grid_data`` / ``grid_model`` / ``grid_fit``, ``state_space_data``
+/ ``state_space_model``, ``zoo_cases``): ICM coregionalized regression on three
+correlated targets of the bench function over the main data's inputs (rank 1,
+ARD Matern52 on the inputs); the Mauna Loa composition of Rasmussen & Williams
+2006, eq. 5.19, plus a linear trend, on a 1-D seasonal series; a Kronecker GP
+on a square grid with an RBF per axis; the quasi-periodic state-space GP on a
+1-D series; and every other zoo kernel on inputs of its own layout.
+
 The sizes are arguments, so a test can run the same functions small.
 """
 from __future__ import annotations
@@ -57,11 +66,18 @@ from .bo.space import DesignSpace
 from .bo.methods import BayesianOptimization
 from .bo.space import bounds_to_space
 from .config import resolve_device, resolve_dtype
-from .kernels.stationary import RBF, Matern52
+from .kernels.base import placement
+from .kernels.linear import Linear, LinearFull
+from .kernels.other import MLP, Brownian, Poly, Spline, StandardPeriodic
+from .kernels.static import Bias, Fixed, WhiteHeteroscedastic
+from .kernels.stationary import RBF, Matern32, Matern52, RatQuad
 from .models import fit as fit_module
 from .models.bo_models import GPModel
 from .models.fit import Fitter
 from .models.gp import GPRegression, Posterior
+from .models.gp_grid import GPGridRegression
+from .models.multioutput import GPCoregionalizedRegression
+from .models.state_space import StateSpaceGP, from_kernel
 from .models.sparse import SparseGPRegression
 from .models.svgp import SVGP, fit_svgp
 from .models.mean_functions import Constant
@@ -427,3 +443,229 @@ def outlier_targets(Y, share: float = 0.05, sigmas: float = 5.0, seed: int = 0):
     rows = np.random.default_rng(seed).permutation(Y.shape[0])[:int(share * Y.shape[0])]
     Y[rows] += sigmas * Y.std()
     return Y
+
+
+# the zoo slice's main path: ICM over 3 tasks of the main data (4096 rows in all)
+ICM_TASKS = 3
+ICM_SCALES = (1.0, 0.7, -0.5)   # task t's target: s_t f(x) + c_t + noise
+ICM_OFFSETS = (0.0, 0.3, -0.2)
+ICM_NOISE = 0.05
+
+
+def icm_data(n: int = N, d: int = D, tasks: int = ICM_TASKS, seed: int = 0):
+    """(X_list, Y_list): the bench's inputs split into ``tasks`` near-equal
+    parts (1366 + 1365 + 1365 at N = 4096), task t's targets s_t f(x) + c_t plus
+    noise of std 0.05 with f the bench function: one latent function, so a
+    rank-1 coregionalization fits them."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(BOX[0], BOX[1], size=(n, d))
+    Xs = np.array_split(X, tasks)
+    Ys = [ICM_SCALES[t % len(ICM_SCALES)] * bench_function(Xt) + ICM_OFFSETS[t % 3]
+          + ICM_NOISE * rng.standard_normal((len(Xt), 1)) for t, Xt in enumerate(Xs)]
+    return Xs, Ys
+
+
+def icm_model(X_list, Y_list, rank: int = 1, noise_var: float = 0.1, dtype=None,
+              device=None) -> GPCoregionalizedRegression:
+    """GPCoregionalizedRegression with an ARD Matern52 on the inputs;
+    ``device`` None means the card."""
+    where = placement(dtype, device)
+    d = np.atleast_2d(X_list[0]).shape[1]
+    return GPCoregionalizedRegression(X_list, Y_list,
+                                      base_kernel=Matern52.create(d, ARD=True, **where),
+                                      rank=rank, noise_var=noise_var, **where)
+
+
+def icm_fit(model: GPCoregionalizedRegression, restarts: int = FIT_RESTARTS,
+            steps: int = FIT_STEPS, starts: torch.Tensor | None = None, generator=None):
+    """The main path's fit on the coregionalized GP (``Fitter(restarts,
+    maxiter=steps, tol=0.0)``); the model takes the fitted GP. Returns the
+    LBFGSResult."""
+    model.model, res = fit(model.model, restarts, steps, starts=starts, generator=generator)
+    return res
+
+
+def co2_data(n: int = N, seed: int = 0):
+    """A seasonal series: 1-D times over 20 years, a linear trend, a yearly
+    cycle, a slower 7-year swing and noise of std 0.1 (numpy float64)."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.0, 20.0, n))[:, None]
+    y = (0.15 * t + 0.8 * np.sin(2 * np.pi * t) + 0.3 * np.sin(2 * np.pi * t / 7.0)
+         + 0.1 * rng.standard_normal((n, 1)))
+    return t, y
+
+
+def co2_kernel(dtype=None, device=None):
+    """RBF (long-term) + StandardPeriodic * RBF (a decaying yearly cycle) +
+    RatQuad (medium-term irregularities) + Linear + Bias: the Mauna Loa CO2
+    composition (Rasmussen & Williams 2006, sec. 5.4.3, eq. 5.19) plus a
+    linear trend."""
+    where = placement(dtype, device)
+    return (RBF.create(1, variance=1.0, lengthscale=5.0, **where)
+            + StandardPeriodic.create(1, variance=1.0, period=1.0, lengthscale=1.0, **where)
+            * RBF.create(1, variance=1.0, lengthscale=10.0, **where)
+            + RatQuad.create(1, variance=0.5, lengthscale=1.0, power=1.0, **where)
+            + Linear.create(1, variances=0.01, **where) + Bias.create(1, variance=1.0, **where))
+
+
+def co2_model(X, Y, dtype=None, device=None) -> GPRegression:
+    where = placement(dtype, device)
+    return GPRegression.create(X, Y, kernel=co2_kernel(**where), noise_var=0.01, **where)
+
+
+GRID_SIDE = 64
+
+
+def grid_data(side: int = GRID_SIDE, seed: int = 0):
+    """(axes, Y): a side x side grid on [0, 1]^2, sin(6 x1) cos(4 x2) plus
+    noise of std 0.05."""
+    rng = np.random.default_rng(seed)
+    a1, a2 = np.linspace(0.0, 1.0, side), np.linspace(0.0, 1.0, side)
+    Y = (np.sin(6 * a1)[:, None] * np.cos(4 * a2)[None, :]
+         + 0.05 * rng.standard_normal((side, side)))
+    return (a1, a2), Y
+
+
+def grid_model(axes, Y, dtype=None, device=None) -> GPGridRegression:
+    """GPGridRegression with an RBF (lengthscale 0.2) per axis, noise 0.05."""
+    where = placement(dtype, device)
+    return GPGridRegression.create(axes, Y, [RBF.create(1, lengthscale=0.2, **where)
+                                             for _ in axes], noise_var=0.05, **where)
+
+
+def grid_dense(model: GPGridRegression) -> GPRegression:
+    """The same model as a dense GP on the grid's points (the product of the
+    axis kernels, each on its own column)."""
+    pts = torch.cartesian_prod(*(a[:, 0] for a in model.axes))
+    pts = pts.reshape(-1, len(model.axes))
+    kern = None
+    for i, k in enumerate(model.kerns):
+        part = dataclasses.replace(k, active_dims=(i,))
+        kern = part if kern is None else kern * part
+    return GPRegression(kern=kern, likelihood_variance=model.likelihood_variance, X=pts,
+                        Y=model.Y.reshape(-1, 1))
+
+
+def grid_fit(model: GPGridRegression, restarts: int = 1, steps: int = FIT_STEPS):
+    """L-BFGS on the -LML with the grid's coordinates fixed (the reference's
+    packing trains them); returns (fitted, LBFGSResult)."""
+    return fit_module.fit(model, num_restarts=restarts, maxiter=steps, fix=("axes",))
+
+
+def state_space_data(n: int = N, seed: int = 0):
+    """A quasi-periodic 1-D series: times over [0, 40], a cycle of period 2
+    under a slow amplitude drift, noise of std 0.1."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.0, 40.0, n))
+    y = (1.0 + 0.5 * np.sin(t / 7.0)) * np.sin(np.pi * t) + 0.1 * rng.standard_normal(n)
+    return t, y
+
+
+def state_space_kernel(dtype=None, device=None):
+    """Matern32 + StandardPeriodic * Matern32 (quasi-periodic)."""
+    where = placement(dtype, device)
+    return (Matern32.create(1, variance=0.5, lengthscale=5.0, **where)
+            + StandardPeriodic.create(1, variance=1.0, period=2.0, lengthscale=1.0, **where)
+            * Matern32.create(1, variance=1.0, lengthscale=10.0, **where))
+
+
+def state_space_model(t, y, kernel=None, order: int = 7, dtype=None,
+                      device=None) -> StateSpaceGP:
+    where = placement(dtype, device)
+    kernel = state_space_kernel(**where) if kernel is None else kernel
+    return from_kernel(kernel, t, y, noise_var=0.01, order=order, **where)
+
+
+def zoo_cases(n: int = N, seed: int = 0, dtype=None, device=None):
+    """[(name, kernel, X)]: every zoo kernel beyond the stationary families,
+    the coregionalization and the state-space legs' kernels, each on ``n``
+    rows of its own input layout (index columns, time windows, 1-D times)."""
+    from . import kernels as zk
+
+    where = placement(dtype, device)
+    rng = np.random.default_rng(seed)
+
+    def idx(k):
+        return rng.integers(0, k, n).astype(float)
+
+    normal2 = rng.standard_normal((n, 2))
+    times = np.sort(rng.uniform(0.0, 3.0, n))
+    lfm_X = np.column_stack([times, idx(4)])
+    cases = [
+        ("TruncLinear", zk.TruncLinear.create(2, variances=[0.7, 1.2], delta=[0.1, -0.2],
+                                              ARD=True, **where), normal2),
+        ("TruncLinearInf", zk.TruncLinearInf.create(2, interval=(-1.0, 2.0), ARD=True,
+                                                    **where), normal2),
+        ("Hierarchical", zk.Hierarchical.create([RBF.create(1, **where),
+                                                 RBF.create(1, variance=0.5, **where)]),
+         np.column_stack([rng.standard_normal(n), idx(5)])),
+        ("Symmetric", zk.Symmetric.create(RBF.create(1, **where), -np.eye(1), "even"),
+         rng.uniform(0.2, 2.0, (n, 1))),
+        ("PolynomialBasisFunc", zk.PolynomialBasisFuncKernel.create(1, degree=2, **where),
+         rng.standard_normal((n, 1))),
+        ("LinearSlopeBasisFunc", zk.LinearSlopeBasisFuncKernel.create(
+            1, start=[-1.0, 0.0], stop=[0.5, 1.5], ARD=True, **where),
+         rng.standard_normal((n, 1))),
+        ("ChangePointBasisFunc", zk.ChangePointBasisFuncKernel.create(1, changepoint=0.1,
+                                                                      **where),
+         rng.standard_normal((n, 1))),
+        ("DomainKernel", zk.DomainKernel.create(1, start=-0.5, stop=0.7, **where),
+         rng.standard_normal((n, 1))),
+        ("LogisticBasisFunc", zk.LogisticBasisFuncKernel.create(1, centers=[-0.5, 0.5],
+                                                                ARD=True, **where),
+         rng.standard_normal((n, 1))),
+        ("IndependentOutputs", zk.IndependentOutputs(RBF.create(1, lengthscale=0.7, **where),
+                                                     output_dim=2),
+         np.column_stack([rng.standard_normal(n), idx(2)])),
+        ("SplitKern", zk.SplitKern.create(RBF.create(1, variance=1.5, lengthscale=0.8,
+                                                     **where), [[0.3]]),
+         np.column_stack([rng.standard_normal(n), idx(2)])),
+        ("DEtime", zk.DEtime.create(RBF.create(1, **where), idx_p=4, Xp=[[1.0]]),
+         np.column_stack([rng.uniform(0.0, 2.0, n), np.repeat([0.0, 1.0], [n // 2, n - n // 2])])),
+        ("MultioutputKern", zk.MultioutputKern.create(
+            [RBF.create(1, lengthscale=0.5, **where),
+             Matern52.create(1, variance=2.0, lengthscale=1.5, **where)]),
+         np.column_stack([rng.standard_normal(n), idx(2)])),
+        ("PeriodicExponential", zk.PeriodicExponential.create(**where),
+         rng.uniform(0.0, 2.0, (n, 1))),
+        ("PeriodicMatern32", zk.PeriodicMatern32.create(**where), rng.uniform(0.0, 2.0, (n, 1))),
+        ("PeriodicMatern52", zk.PeriodicMatern52.create(**where), rng.uniform(0.0, 2.0, (n, 1))),
+        ("Integral", zk.Integral.create(variances=1.4, lengthscale=0.8, **where),
+         rng.uniform(0.1, 2.0, (n, 1))),
+        ("IntegralLimits", zk.IntegralLimits.create(variances=1.2, lengthscale=0.9, **where),
+         np.column_stack([rng.uniform(1.0, 2.0, n), rng.uniform(0.0, 1.0, n)])),
+        ("MultidimensionalIntegralLimits", zk.MultidimensionalIntegralLimits.create(
+            4, variances=1.1, lengthscale=[0.8, 1.1], **where),
+         np.column_stack([rng.uniform(1.0, 2.0, n), rng.uniform(0.0, 1.0, n),
+                          rng.uniform(1.0, 2.0, n), rng.uniform(0.0, 1.0, n)])),
+        ("ODE_UY", zk.ODE_UY.create(variance_U=1.2, variance_Y=0.9, lengthscale_U=0.7,
+                                    lengthscale_Y=1.3, **where),
+         np.column_stack([times, idx(2)])),
+        ("ODE_UYC", zk.ODE_UYC.create(variance_U=1.2, variance_Y=0.9, lengthscale_U=0.7,
+                                      lengthscale_Y=1.3, ubias=0.4, **where),
+         np.column_stack([times, idx(2)])),
+        ("ODE_t", zk.ODE_t.create(variance_Yt=1.4, lengthscale_Yt=0.8, ubias=0.3, **where),
+         np.column_stack([times, idx(2)])),
+        ("ODE_st", zk.ODE_st.create(a=0.6, b=1.1, c=0.8, **where),
+         np.column_stack([times, rng.uniform(-1, 1, n), idx(2)])),
+        ("EQ_ODE1", zk.EQ_ODE1.create(output_dim=2, rank=2, W=[[0.8, 0.3], [1.2, -0.5]],
+                                      lengthscale=[0.8, 1.2], decay=[0.5, 1.5], **where),
+         lfm_X),
+        ("EQ_ODE2", zk.EQ_ODE2.create(output_dim=2, rank=2, W=[[0.9, 0.2], [1.1, -0.4]],
+                                      lengthscale=[0.8, 1.3], C=[0.5, 3.0], B=[2.0, 1.0],
+                                      **where), lfm_X),
+        ("Symbolic", zk.SymbolicKernel.create(
+            2, lambda x, z, p: p["variance"] * torch.exp(
+                -0.5 * torch.sum((x - z) ** 2) / p["lengthscale"] ** 2),
+            params={"variance": 1.3, "lengthscale": 0.8}, **where), normal2),
+        ("MLP", MLP.create(2, **where), normal2),
+        ("Poly", Poly.create(2, order=3, **where), normal2),
+        ("Brownian", Brownian.create(**where), rng.uniform(0.1, 3.0, (n, 1))),
+        ("Spline", Spline.create(**where), rng.uniform(0.1, 1.0, (n, 1))),
+        ("LinearFull", LinearFull.create(3, 2, **where), rng.standard_normal((n, 3))),
+        ("WhiteHeteroscedastic", WhiteHeteroscedastic.create(
+            2, num_data=n, variance=np.linspace(0.1, 0.7, n), **where), normal2),
+        ("Fixed", Fixed.create(2, fixed_K=np.exp(-np.abs(np.subtract.outer(times, times))),
+                               variance=0.6, **where), normal2),
+    ]
+    return [(name, k, torch.as_tensor(X, **where)) for name, k, X in cases]

@@ -642,3 +642,93 @@ def test_approximate_inference_launches_the_kernels(which, cuda):
     want = run(False)
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-3 * float(want[1].abs().max()))
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_icm_product_with_active_dims_matches_plain_route(lanes, cuda):
+    """The ICM kernel, ARD Matern52 on 6 of 7 columns (an ``active_dims``
+    slice) times Coregionalize on the task column: with the kernels on, the
+    Matern52 part launches B1 (twice under autograd: the product's
+    rematerialized build) and B2's row and column passes; K and every leaf's
+    gradient equal the plain
+    route's; the task column's gradient is exactly zero on both."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.kernels import Matern52
+    from gaussian_process_optimization_tpu_torch.models.multioutput import icm_kernel
+    from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves, replace_leaves
+
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    X = torch.cat([torch.rand(300, 6, generator=gen) * 4 - 2,
+                   torch.randint(0, 3, (300, 1), generator=gen).float()], dim=1).to(cuda)
+    G = torch.randn(lanes, 300, 300, generator=gen).to(cuda)
+    base = Matern52.create(6, ARD=True, lengthscale=[0.7, 1.1, 0.9, 1.4, 0.8, 1.2],
+                           dtype=torch.float32, device=cuda)
+    kern = icm_kernel(6, 3, base, rank=1, W=[[0.5], [1.0], [-0.3]], kappa=[0.2, 0.4, 0.1])
+    if lanes > 1:
+        scale = torch.linspace(0.9, 1.1, lanes, device=cuda)
+        kern = replace_leaves(kern, [t * scale.reshape((lanes,) + (1,) * t.ndim)
+                                     for _, t in named_leaves(kern)])
+
+    def run(use_kernels):
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = use_kernels
+        try:
+            leaves = [t.clone().requires_grad_(True) for _, t in named_leaves(kern)]
+            Xg = X.clone().requires_grad_(True)
+            K = replace_leaves(kern, leaves).K(Xg)
+            grads = torch.autograd.grad(torch.sum(K * G), leaves + [Xg])
+            return K.detach(), grads
+        finally:
+            config.use_cuda_kernels = old
+
+    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    K, grads = run("auto")
+    assert ck.stationary_k_build.launches == 2
+    # X is both arguments and gets a gradient: the row pass and the column pass
+    assert ck.stationary_k_backward.launches == 2
+    K_plain, grads_plain = run(False)
+    torch.testing.assert_close(K, K_plain, rtol=2e-5, atol=2e-6)
+    # the leaves' gradients; X's only on its task column (the plain route's
+    # float32 dX goes through the matmul form of r^2 and is not an oracle)
+    for a, b in zip(grads[:-1], grads_plain[:-1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+    assert torch.all(grads[-1][:, -1] == 0) and torch.all(grads_plain[-1][:, -1] == 0)
+
+
+def test_icm_lml_through_b1_matches_plain_route(cuda):
+    """The coregionalized GP's -LML and its gradient in the optimizer's
+    coordinates at N = 600 (3 tasks) in float32: through B1 / B2 / B3 against
+    the plain route, each within 4x the plain route's error against float64."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    Xs, Ys = workload.icm_data(n=600)
+    model = workload.icm_model(Xs, Ys, dtype=torch.float32, device=cuda).model
+    packer = make_packer(model)
+    obj = make_objective(packer)
+
+    def value_and_grad(m, use_kernels="auto"):
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = use_kernels
+        try:
+            u = packer.pack(m)[None].clone().requires_grad_(True)
+            f = obj(u, m)[0]
+            (g,) = torch.autograd.grad(f, u)
+            return float(f.detach()), g[0].double()
+        finally:
+            config.use_cuda_kernels = old
+
+    ck.stationary_k_build.launches = cl.tri_inv_blocks.launches = 0
+    f_k, g_k = value_and_grad(model)
+    assert ck.stationary_k_build.launches > 0 and cl.tri_inv_blocks.launches > 0
+    f_p, g_p = value_and_grad(model, False)
+    f64, g64 = value_and_grad(tree_map(lambda t: t.double(), model), False)
+    scale = float(g64.abs().max())
+    err_k, err_p = abs(f_k - f64) / abs(f64), abs(f_p - f64) / abs(f64)
+    gerr_k = float((g_k - g64).abs().max()) / scale
+    gerr_p = float((g_p - g64).abs().max()) / scale
+    print(f"ICM -LML f32 vs f64: kernels {err_k:.2e}, plain {err_p:.2e}; gradient "
+          f"kernels {gerr_k:.2e}, plain {gerr_p:.2e}")
+    assert err_k <= 4 * max(err_p, 1e-7)
+    assert gerr_k <= 4 * max(gerr_p, 1e-6)

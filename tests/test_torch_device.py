@@ -15,7 +15,11 @@ from gaussian_process_optimization_tpu_torch.bo.evaluators import Sequential
 from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
 from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
 from gaussian_process_optimization_tpu_torch.config import resolve_device, resolve_dtype
+from gaussian_process_optimization_tpu_torch import kernels as zoo
 from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52, RatQuad, Sinc
+from gaussian_process_optimization_tpu_torch.models import multioutput
+from gaussian_process_optimization_tpu_torch.models.gp_grid import GPGridRegression
+from gaussian_process_optimization_tpu_torch.models.state_space import StateSpaceGP, from_kernel
 from gaussian_process_optimization_tpu_torch.models import mean_functions
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
 from gaussian_process_optimization_tpu_torch.models.classification import (
@@ -104,6 +108,101 @@ ENTRY_POINTS = {
     "TPRegression.create": lambda **kw: TPRegression.create(*_data(), **kw).deg_free.device,
     "BODriver": lambda **kw: BODriver({}, None, **kw).device,
 }
+
+
+def _first(kern):
+    return kern._leaf_like().device
+
+
+def _tasks():
+    X, Y = _data()
+    return [X[:6], X[6:]], [Y[:6], Y[6:]]
+
+
+def _grid_leaves():
+    return {"kerns.0.variance": 1.0, "kerns.0.lengthscale": 0.5, "likelihood_variance": 0.1,
+            "axes.0": [[0.0], [0.5], [1.0]], "Y": [0.1, 0.2, 0.3]}
+
+
+def _ss_leaves():
+    return {"variance": 1.0, "lengthscale": 0.5, "noise_variance": 0.1, "period": 1.0,
+            "lengthscale_damp": 1.0, "X": [[0.0], [0.5], [1.0]], "Y": [[0.1], [0.2], [0.3]]}
+
+
+# the zoo's constructors: name -> a build with ``**kw`` carrying the device, if any
+ZOO_ENTRY_POINTS = {
+    "White.create": lambda **kw: _first(zoo.White.create(2, **kw)),
+    "Bias.create": lambda **kw: _first(zoo.Bias.create(2, **kw)),
+    "WhiteHeteroscedastic.create": lambda **kw: _first(zoo.WhiteHeteroscedastic.create(
+        2, num_data=4, **kw)),
+    "Fixed.create": lambda **kw: _first(zoo.Fixed.create(2, fixed_K=[[1.0]], **kw)),
+    "Linear.create": lambda **kw: _first(zoo.Linear.create(2, ARD=True, **kw)),
+    "LinearFull.create": lambda **kw: _first(zoo.LinearFull.create(2, 1, **kw)),
+    "StandardPeriodic.create": lambda **kw: _first(zoo.StandardPeriodic.create(1, **kw)),
+    "MLP.create": lambda **kw: _first(zoo.MLP.create(2, **kw)),
+    "Poly.create": lambda **kw: _first(zoo.Poly.create(2, **kw)),
+    "Brownian.create": lambda **kw: _first(zoo.Brownian.create(**kw)),
+    "Spline.create": lambda **kw: _first(zoo.Spline.create(**kw)),
+    "Coregionalize.create": lambda **kw: _first(zoo.Coregionalize.create(1, 3, **kw)),
+    "TruncLinear.create": lambda **kw: _first(zoo.TruncLinear.create(2, **kw)),
+    "TruncLinearInf.create": lambda **kw: _first(zoo.TruncLinearInf.create(2, (0.0, 1.0),
+                                                                          **kw)),
+    "PolynomialBasisFuncKernel.create": lambda **kw: _first(
+        zoo.PolynomialBasisFuncKernel.create(1, 2, **kw)),
+    "LinearSlopeBasisFuncKernel.create": lambda **kw: _first(
+        zoo.LinearSlopeBasisFuncKernel.create(1, 0.0, 1.0, **kw)),
+    "ChangePointBasisFuncKernel.create": lambda **kw: _first(
+        zoo.ChangePointBasisFuncKernel.create(1, 0.5, **kw)),
+    "DomainKernel.create": lambda **kw: _first(zoo.DomainKernel.create(1, 0.0, 1.0, **kw)),
+    "LogisticBasisFuncKernel.create": lambda **kw: _first(
+        zoo.LogisticBasisFuncKernel.create(1, [0.0, 1.0], **kw)),
+    "SplitKern.create": lambda **kw: _first(zoo.SplitKern.create(zoo.RBF.create(1, **kw),
+                                                                 [[0.5]])),
+    "PeriodicMatern32.create": lambda **kw: _first(zoo.PeriodicMatern32.create(**kw)),
+    "Integral.create": lambda **kw: _first(zoo.Integral.create(**kw)),
+    "IntegralLimits.create": lambda **kw: _first(zoo.IntegralLimits.create(**kw)),
+    "MultidimensionalIntegralLimits.create": lambda **kw: _first(
+        zoo.MultidimensionalIntegralLimits.create(4, **kw)),
+    "ODE_UY.create": lambda **kw: _first(zoo.ODE_UY.create(**kw)),
+    "ODE_UYC.create": lambda **kw: _first(zoo.ODE_UYC.create(**kw)),
+    "ODE_t.create": lambda **kw: _first(zoo.ODE_t.create(**kw)),
+    "ODE_st.create": lambda **kw: _first(zoo.ODE_st.create(**kw)),
+    "EQ_ODE1.create": lambda **kw: _first(zoo.EQ_ODE1.create(2, 1, **kw)),
+    "EQ_ODE2.create": lambda **kw: _first(zoo.EQ_ODE2.create(2, 1, **kw)),
+    "SymbolicKernel.create": lambda **kw: _first(zoo.SymbolicKernel.create(
+        1, lambda x, z, p: p["v"] * (x * z).sum(), params={"v": 1.0}, **kw)),
+    "icm_kernel": lambda **kw: _first(multioutput.icm_kernel(2, 3, **kw)),
+    "private_kernel": lambda **kw: _first(multioutput.private_kernel(2, 3, **kw)),
+    "GPCoregionalizedRegression": lambda **kw: multioutput.GPCoregionalizedRegression(
+        *_tasks(), **kw).model.X.device,
+    "SparseGPCoregionalizedRegression": lambda **kw:
+        multioutput.SparseGPCoregionalizedRegression(*_tasks(), num_inducing=2,
+                                                     **kw).model.Z.device,
+    "SparseGPRegressionMD": lambda **kw: multioutput.SparseGPRegressionMD(
+        _data()[0], _data()[1][:, 0], [0, 1] * 6, num_inducing=3, **kw).model.Z.device,
+    "GPGridRegression.create": lambda **kw: GPGridRegression.create(
+        [[0.0, 1.0], [0.0, 1.0]], [[0.1, 0.2], [0.3, 0.4]],
+        [zoo.RBF.create(1, device="cpu")] * 2, **kw).Y.device,
+    "StateSpaceGP.create": lambda **kw: StateSpaceGP.create(
+        [0.0, 0.5, 1.0], [0.1, 0.2, 0.3], **kw).X.device,
+    "state_space.from_kernel": lambda **kw: from_kernel(
+        zoo.Matern32.create(1, device="cpu"), [0.0, 0.5], [0.1, 0.2], **kw).X.device,
+    "kernel_from_leaves": lambda **kw: convert.kernel_from_leaves(
+        {"kern.variance": 1.0, "kern.period": 1.0, "kern.lengthscale": 1.0},
+        {"class": "StandardPeriodic", "input_dim": 1}, **kw).period.device,
+    "multioutput_from_leaves": lambda **kw: convert.multioutput_from_leaves(
+        {"kern.parts.0.variance": 1.0, "kern.parts.0.lengthscale": 1.0,
+         "kern.parts.1.W": [[0.5], [0.5]], "kern.parts.1.kappa": [0.5, 0.5],
+         "likelihood_variance": 0.1, "X": [[0.0, 0.0], [1.0, 1.0]], "Y": [[0.1], [0.2]]},
+        {"class": "Prod", "parts": [{"class": "RBF", "input_dim": 1, "active_dims": [0]},
+                                    {"class": "Coregionalize", "input_dim": 1,
+                                     "active_dims": [1]}]}, 2, **kw).model.X.device,
+    "grid_from_leaves": lambda **kw: convert.grid_from_leaves(
+        _grid_leaves(), [{"class": "RBF", "input_dim": 1}], **kw).Y.device,
+    "state_space_from_leaves": lambda **kw: convert.state_space_from_leaves(
+        _ss_leaves(), **kw).X.device,
+}
+ENTRY_POINTS.update(ZOO_ENTRY_POINTS)
 
 
 @pytest.fixture

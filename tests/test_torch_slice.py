@@ -203,3 +203,13 @@ def test_scan_covers_the_thesis_modules():
             "bo/acquisitions.py", "bo/optimizer.py", "bo/evaluators.py", "bo/bo_loop.py",
             "bo/methods.py", "ops/cuda_linalg.py", "ops/linalg.py", "workload.py",
             "convert.py"} <= scanned
+
+
+def test_scan_covers_the_zoo_modules():
+    """The zoo slice's modules are in the no-jax scan (it walks the package)."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"ops/special.py", "kernels/static.py", "kernels/linear.py", "kernels/other.py",
+            "kernels/misc.py", "kernels/split.py", "kernels/periodic_rkhs.py",
+            "kernels/integral.py", "kernels/ode.py", "kernels/lfm.py", "kernels/symbolic.py",
+            "kernels/__init__.py", "models/multioutput.py", "models/gp_grid.py",
+            "models/state_space.py"} <= scanned
