@@ -110,7 +110,20 @@ Phases, each printing its own lines:
                 and B2 also timed at legs 1-2's shapes (D=6 through a 7-column slice,
                 D=1), with plain times and byte bounds. The phase reports every leg
                 before it fails on any;
- 11. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
+ 11. latent   — the latent-variable models, float32 on the card, through their entry
+                points with no device given (run before leg A). Leg 1, the slice's main
+                path: the point GPLVM (N=4096, D=12 oil-flow stand-in, Q=6, RBF ARD +
+                Bias, one L-BFGS lane of at most 200 steps over 24 585 parameters: B1,
+                B2's row and column passes, B3), infer_newX on 256 held-out rows (one
+                with a NaN entry) and its reconstruction RMSE; the -LML and its gradient
+                with the X block against float64. Leg 2: the Bayesian GPLVM (Q=7, M=40,
+                100 steps, peak memory), predict and the uncertain infer_newX. Leg 3:
+                MRD, SS-GPLVM, LVMOGP, the SVI Bayesian GPLVM, the IBP latent force
+                model, the zoo.py models and the magnification of leg 1's model, one
+                short run each, f32 against f64. Phase 3 also holds B2 with dX and dZ
+                at the GPLVM's (1, 4096, 4096), Q=6. The fitted leaves are saved to
+                chiprun_out/latent_fitted.npz;
+ 12. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -633,14 +646,15 @@ GRAD_START_LIMIT = 1e-4
 GRAD_TERMS_LIMIT = 1e-2
 
 
-def _neg_lml_grad_terms(model):
+def _neg_lml_grad_terms(model, packer=None):
     """Gradients of the -LML's two terms, 0.5 p logdet and 0.5 quad, with
-    respect to the packed parameters (float64, (n,) each); their sum is the
-    fit objective's gradient. The forward is GPRegression._core's."""
+    respect to the packed parameters (float64, (n,) each; by default the fit's
+    packer); their sum is the fit objective's gradient. The forward is
+    GPRegression._core's."""
     from gaussian_process_optimization_tpu_torch.models.gp import AssembleKy, ExactCore
     from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 
-    packer = make_packer(model)
+    packer = make_packer(model) if packer is None else packer
     u = packer.pack(model)[None].clone().requires_grad_(True)
     m = packer.unpack(u, reference=model)
     Yc = m._normalized_Y()
@@ -1915,7 +1929,7 @@ def _now():
 def _f64(obj):
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
-    return tree_map(lambda t: t.double(), obj)
+    return tree_map(lambda t: t.double() if t.is_floating_point() else t, obj)
 
 
 def _lml_and_terms(name, fitted, lml_limit, grad_limit, failures):
@@ -2289,6 +2303,300 @@ def phase_zoo(dev=None, n=4096, side=64, restarts=5, steps=30, ss_steps=SS_FIT_S
     return total
 
 
+# Phase 11's limits. Leg 1 (the point GPLVM): the -LML at the fitted point,
+# f32 against f64 at the f32 ladder's jitter (relative), and its gradient with
+# the X block, max over components of |g32 - g64| over the larger of the
+# component's two f64 terms (0.5 p logdet, 0.5 quad), each term floored at
+# 1e-3 of the largest (most of the 24 576 X components are far smaller than
+# the hyperparameters'). Leg 2 (the Bayesian GPLVM): the -ELBO f32 against f64
+# at the model's start; at the fitted point the float32 bound is rounding in
+# both packages (ROADMAP C13), so there the f64 -ELBO must be below the
+# start's and the f32 reading is printed beside the JAX package's. Leg 3:
+# each model's -bound at its fitted point, f32 against f64 (relative). Each
+# limit is 10x the JAX package's own float32 reading on the CPU at the card's
+# fitted leaves (tests/test_torch_latent_f32.py, marked slow, prints them;
+# NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section 6), and at least
+# LATENT_FLOOR. LVMOGP's and the offset regression's float32 bounds are
+# rounding at their fitted points in both packages (C13): their limits hold
+# the port to the reference's own error there and no closer.
+LATENT_JAX_F32 = {"gplvm": (8.590e-06, 3.510e-02), "bgplvm_start": 1.355e-07,
+                  "bgplvm_fitted": 7.024e-02}
+LATENT_LEG3_JAX_F32 = {
+    "MRD": 2.771e-05, "SSGPLVM": 6.225e-03, "LVMOGP": 5.794e+00, "BGPLVM_SVI": 1.348e-06,
+    "IBPLFM": 1.356e-07, "GPHeteroscedasticRegression": 9.041e-03,
+    "GPKroneckerGaussianRegression": 2.309e-06, "GPVariationalGaussianApproximation": 2.068e-07,
+    "OneVsAllClassification": 8.795e-08, "OneVsAllSparseClassification": 2.117e-05,
+    "bcgplvm": 4.845e-07, "sparse_gplvm": 1.293e-04, "GPOffsetRegression": 5.453e-01}
+LATENT_FLOOR = 1e-5
+LATENT_TERM_FLOOR = 1e-3
+LATENT_LEG3_N = 512
+LATENT_LEG3_STEPS = 60
+LATENT_FITTED = ROOT / "chiprun_out" / "latent_fitted.npz"
+HELD = 256  # rows predicted at, and held out for infer_newX
+
+
+def _limit(reading):
+    return max(10.0 * reading, LATENT_FLOOR)
+
+
+def _gplvm_terms(model):
+    """The -LML's two terms' gradients in the GPLVM's packed coordinates (the
+    hyperparameters and X), float64."""
+    from gaussian_process_optimization_tpu_torch.models.gplvm import gplvm_packer
+
+    return _neg_lml_grad_terms(model, gplvm_packer(model))
+
+
+def gplvm_gradient_error(ld32, q32, ld64, q64, n_hyper):
+    """(all, hyperparameters, X block) of max |g32 - g64| / max(|ld64|, |q64|,
+    LATENT_TERM_FLOOR x the largest such term)."""
+    terms = torch.maximum(ld64.abs(), q64.abs())
+    terms = torch.clamp(terms, min=LATENT_TERM_FLOOR * float(terms.max()))
+    ratio = ((ld32 + q32) - (ld64 + q64)).abs() / terms
+    return float(ratio.max()), float(ratio[:n_hyper].max()), float(ratio[n_hyper:].max())
+
+
+def _save_fitted(fitted: dict):
+    """The fitted leaves of phase 11's models under chiprun_out/, keyed
+    '<model>/<leaf path>' (the targets are regenerated from their seeds)."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch.convert import leaves_of
+
+    out = {f"{name}/{path}": v for name, m in fitted.items()
+           for path, v in leaves_of(m).items()
+           if path.split(".")[0] not in ("Y", "Ys", "mask")}
+    LATENT_FITTED.parent.mkdir(exist_ok=True)
+    np.savez_compressed(LATENT_FITTED, **out)
+    print(f"# latent: fitted leaves of {len(fitted)} models saved to {LATENT_FITTED.relative_to(ROOT)}")
+
+
+def _leg_gplvm(where, failures, steps):
+    """Leg 1: the point GPLVM, N = 4096, D = 12, Q = 6, RBF ARD + Bias, one
+    lane of at most ``steps`` L-BFGS steps; then infer_newX on the held-out
+    rows (one with a NaN entry) and the reconstruction RMSE."""
+    import dataclasses
+
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.models.fit import make_objective
+    from gaussian_process_optimization_tpu_torch.models.gplvm import gplvm_packer
+    from gaussian_process_optimization_tpu_torch.models.inference_x import infer_newX
+
+    Y, _, Y_new = workload.latent_data()
+    model = workload.gplvm_model(Y, **where)
+    _zero_counts()
+    t0 = _now()
+    fitted, res = workload.gplvm_fit(model, steps=steps)
+    t1 = _now()
+    post = fitted.inference(precompute_inverse=True)
+    mu_train, _ = fitted.predict(fitted.X[:HELD], posterior=post)
+    t2 = _now()
+    X_new, info = infer_newX(fitted, Y_new)
+    t3 = _now()
+    launches = _read_counts()
+    mu, var = fitted.predict(X_new, posterior=post)
+    Yt = torch.as_tensor(Y_new, dtype=mu.dtype, device=mu.device)
+    seen = ~torch.isnan(Yt)
+    rmse = float(torch.sqrt(torch.mean(torch.square((mu - Yt)[seen]))))
+    rmse_train = float(torch.sqrt(torch.mean(torch.square(
+        mu_train - fitted.Y[:HELD]))))
+    n_hyper = gplvm_packer(fitted).num_free - fitted.X.numel()
+    print(f"# latent, leg 1 point GPLVM (N={Y.shape[0]}, D={Y.shape[1]}, Q={fitted.X.shape[1]}, "
+          f"RBF ARD + Bias, {fitted.X.dtype}, {gplvm_packer(fitted).num_free} parameters, 1 x "
+          f"{steps} L-BFGS, the reference's 500 cut: depth): fit {t1 - t0:.3f} s "
+          f"({int(res.num_iters)} steps, {int(res.num_ls)} trials, converged "
+          f"{bool(res.converged)}), -LML {float(res.f):.4f}; posterior + predict {HELD} "
+          f"{t2 - t1:.3f} s; infer_newX {Y_new.shape[0]} rows {t3 - t2:.3f} s; launches "
+          f"{launches}; reconstruction RMSE held out {rmse:.4f} (train rows {rmse_train:.4f}, "
+          f"Y's std {float(np.nanstd(Y)):.4f}); noise {float(fitted.likelihood_variance):.5g}, "
+          f"lengthscales {fitted.kern.parts[0].lengthscale.tolist()}")
+    _gate_launches("latent leg 1 (GPLVM)", launches, ("B1", "B2", "B3"))
+    if launches["B2 dX"] <= 0 or launches["B2 dZ"] <= 0:
+        failures.append(f"GPLVM: B2's row (dX) and column (dZ) passes not both launched: "
+                        f"{launches}")
+    if not (math.isfinite(rmse) and bool(torch.isfinite(X_new).all())
+            and bool(torch.isfinite(info["objective"]).all())):
+        failures.append("GPLVM: infer_newX gave a non-finite latent or objective")
+
+    packer = gplvm_packer(fitted)
+    obj = make_objective(packer)
+    with torch.no_grad():
+        p32 = fitted.inference()
+        jitter = float(p32.jitter)
+        f64m = _f64(fitted)
+        same_ky = dataclasses.replace(f64m, likelihood_variance=f64m.likelihood_variance + jitter)
+        f32 = float(obj(packer.pack(fitted), fitted))
+        f64j = float(obj(packer.pack(same_ky), same_ky))
+    rel = abs(f32 - f64j) / abs(f64j)
+    ld32, q32 = _gplvm_terms(fitted)
+    ld64, q64 = _gplvm_terms(same_ky)
+    g_all, g_hyp, g_x = gplvm_gradient_error(ld32, q32, ld64, q64, n_hyper)
+    lml_limit, grad_limit = (_limit(r) for r in LATENT_JAX_F32["gplvm"])
+    print(f"# latent, leg 1: -LML at the fitted point f32 {f32:.6f}, f64 at the ladder's "
+          f"jitter {jitter:.3g} (rung {int(p32.rung)}) {f64j:.6f}: rel {rel:.3e} (limit "
+          f"{lml_limit:g}); gradient max |g32 - g64| / term {g_all:.3e} (limit {grad_limit:g}): "
+          f"hyperparameters {g_hyp:.3e}, X block {g_x:.3e}")
+    if not rel <= lml_limit:
+        failures.append(f"GPLVM: -LML f32 vs f64 rel {rel:.3e} > {lml_limit:g}")
+    if not g_all <= grad_limit:
+        failures.append(f"GPLVM: gradient f32 vs f64 {g_all:.3e} > {grad_limit:g}")
+    t4 = _now()
+    mag = fitted.predict_magnification(X_new[:HELD], posterior=post)
+    t5 = _now()
+    print(f"# latent, leg 3 predict_magnification on leg 1's model at {mag.shape[0]} points: "
+          f"{t5 - t4:.3f} s, range {float(mag.min()):.4g} .. {float(mag.max()):.4g}")
+    if not bool(torch.isfinite(mag).all()):
+        failures.append("predict_magnification: non-finite")
+    return launches, fitted, {"fit": t1 - t0, "predict": t2 - t1, "infer": t3 - t2}
+
+
+def _leg_bgplvm(where, failures, steps):
+    """Leg 2: the Bayesian GPLVM, N = 4096, D = 12, Q = 7, M = 40, ARD RBF:
+    fit one lane, predict, and the uncertain infer_newX on the held-out rows
+    (the NaN entry set to the column mean, 0 after centring)."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.models.inference_x import infer_newX
+
+    Y, _, Y_new = workload.latent_data()
+    model = workload.bgplvm_model(Y, **where)
+    with torch.no_grad():
+        s32, s64 = -float(model.elbo()), -float(_f64(model).elbo())
+    start_rel, start_limit = abs(s32 - s64) / abs(s64), _limit(LATENT_JAX_F32["bgplvm_start"])
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = _now()
+    fitted, res = workload.bgplvm_fit(model, steps=steps)
+    t1 = _now()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        post = fitted.posterior_u()
+        mu, var = fitted.predict(fitted.q_mu[:HELD], posterior=post)
+    t2 = _now()
+    q, info = infer_newX(fitted, np.nan_to_num(Y_new - Y.mean(0)))
+    t3 = _now()
+    launches = _read_counts()
+    with torch.no_grad():
+        f32 = -float(fitted.elbo())
+        f64 = -float(_f64(fitted).elbo())
+    rel = abs(f32 - f64) / abs(f64)
+    print(f"# latent, leg 2 Bayesian GPLVM (N={Y.shape[0]}, D={Y.shape[1]}, "
+          f"Q={fitted.q_mu.shape[1]}, M={fitted.Z.shape[0]}, {fitted.Z.dtype}, 1 x {steps} "
+          f"L-BFGS): fit {t1 - t0:.3f} s ({int(res.num_iters)} steps, {int(res.num_ls)} trials), "
+          f"peak memory {peak:.3f} GiB (the (N, M, M, Q) intermediate "
+          f"{fitted.q_mu.numel() * fitted.Z.shape[0] ** 2 * 4 / 1e6:.0f} MB); predict {HELD} {t2 - t1:.3f} s; "
+          f"uncertain infer_newX {Y_new.shape[0]} rows {t3 - t2:.3f} s; launches {launches}; "
+          f"-ELBO at the start f32 {s32:.6f} vs f64 {s64:.6f} (rel {start_rel:.3e}, limit "
+          f"{start_limit:g}); at the fitted point f64 {f64:.6f} (below the start's: "
+          f"{f64 < s64}), f32 {f32:.6f} (rel {rel:.3e}, the JAX package's own float32 there "
+          f"{LATENT_JAX_F32['bgplvm_fitted']:.3e}: rounding, C13); ARD relevance 1/l^2 "
+          f"{(1 / fitted.kern.lengthscale ** 2).tolist()}")
+    if not start_rel <= start_limit:
+        failures.append(f"Bayesian GPLVM: -ELBO f32 vs f64 at the start rel {start_rel:.3e} > "
+                        f"{start_limit:g}")
+    if not f64 < s64:
+        failures.append(f"Bayesian GPLVM: the fit did not lower the f64 -ELBO ({s64} -> {f64})")
+    finite = all(bool(torch.isfinite(t).all()) for t in (mu, var, q.mean, q.variance,
+                                                         info["objective"]))
+    if not (finite and bool((var > 0).all()) and bool((q.variance > 0).all())):
+        failures.append("Bayesian GPLVM: non-finite prediction or q(x*)")
+    return launches, fitted, {"fit": t1 - t0, "predict": t2 - t1, "infer": t3 - t2,
+                              "peak_GiB": peak}
+
+
+def _leg_models(where, failures, n, steps):
+    """Leg 3: every other latent and zoo model, one short run each; each
+    gated on finite results and its -bound f32 against f64 at its fitted
+    leaves."""
+    from gaussian_process_optimization_tpu_torch import workload
+
+    fitted, readings = {}, {}
+    _zero_counts()
+    for leg in workload.latent_legs(n=n, steps=steps, **where):
+        t0 = _now()
+        m, preds = leg.run()
+        t1 = _now()
+        with torch.no_grad():
+            f32 = -float(m.log_marginal_likelihood())
+            f64 = -float(_f64(m).log_marginal_likelihood())
+        rel = abs(f32 - f64) / abs(f64)
+        limit = _limit(LATENT_LEG3_JAX_F32[leg.name])
+        flat = [t for p in preds for t in (p if isinstance(p, tuple) else (p,))]
+        finite = math.isfinite(f32) and all(bool(torch.isfinite(t).all()) for t in flat)
+        readings[leg.name] = rel
+        fitted[leg.name] = m
+        print(f"# latent, leg 3 {leg.name} (N={n}; reduced: {leg.reduced}): {t1 - t0:.3f} s; "
+              f"-bound f32 {f32:.6f} vs f64 {f64:.6f} (rel {rel:.3e}, limit {limit:g}); "
+              f"{len(flat)} prediction tensors, finite {finite}")
+        if not finite:
+            failures.append(f"{leg.name}: non-finite bound or prediction")
+        if not rel <= limit:
+            failures.append(f"{leg.name}: -bound f32 vs f64 rel {rel:.3e} > {limit:g}")
+    return _read_counts(), fitted, readings
+
+
+def _gplvm_kernel_row(dev, n=4096, q=6):
+    """B2 with dX and dZ at the GPLVM's (1, n, n), Q = q, ARD RBF: what a
+    trainable X asks of K(X, X)'s backward, beside its plain version and its
+    byte bound (G, X and the parameters read once; dX, dZ and the parameters'
+    gradient written once)."""
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    X = (4 * torch.rand(1, n, q, generator=gen, device=dev) - 2).contiguous()
+    p = torch.zeros(1, 8, device=dev)
+    p[0, 0] = 1.3
+    p[0, 2:2 + q] = 0.5 + torch.rand(q, generator=gen, device=dev)
+    G = (torch.rand(1, n, n, generator=gen, device=dev) - 0.5).contiguous()
+    G = 0.5 * (G + G.mT)
+    got = ck.stationary_k_backward(X, X, p, G, "rbf", True)
+    want = ck.k_backward_plain(X.double(), X.double(), p.double(), G.double(), "rbf", True)
+    errs = []
+    for name, a, w in zip(("dparams", "dX", "dZ"), got, want):
+        _close(f"B2 {name} (1, {n}, {n}) Q={q}", a, w, rtol=1e-4,
+               atol=1e-4 * float(w.abs().max()))
+        errs.append(_max_err(a, w))
+    ms = _time_ms(lambda: ck.stationary_k_backward(X, X, p, G, "rbf", True))
+    plain = _time_ms(lambda: ck.k_backward_plain(X, X, p, G, "rbf", True), calls=5)
+    bound = _bound(_nbytes(G, X, p, got[0], got[1], got[2]), G.numel() * _k_bwd_flops(q))
+    print(f"# B2 stationary_k_backward (1, {n}, {n}) Q={q} RBF ARD, parameters + dX + dZ (the "
+          f"GPLVM's trainable X): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); max |kernel - plain| "
+          f"{max(errs):.3e}")
+    return {"ms": ms, "plain_ms": plain, **bound, "max_abs_err": max(errs)}
+
+
+def phase_latent(where=None, gplvm_steps=None, bgplvm_steps=None, n3=LATENT_LEG3_N,
+                 steps3=LATENT_LEG3_STEPS, save=True):
+    """Phase 11: the latent-variable models, float32 on the card with no device
+    given. Leg 1, the point GPLVM, carries B1 / B2 / B3; its launch counts are
+    zeroed just before its fit and read after its infer_newX. Every leg runs;
+    the phase fails at its end if any check failed."""
+    from gaussian_process_optimization_tpu_torch import workload
+
+    where = {} if where is None else where
+    gplvm_steps = workload.GPLVM_STEPS if gplvm_steps is None else gplvm_steps
+    bgplvm_steps = workload.BGPLVM_STEPS if bgplvm_steps is None else bgplvm_steps
+    failures = []
+    t0 = _now()
+    l1, gplvm, s1 = _leg_gplvm(where, failures, gplvm_steps)
+    l2, bgplvm, s2 = _leg_bgplvm(where, failures, bgplvm_steps)
+    t2 = _now()
+    l3, fitted, _ = _leg_models(where, failures, n3, steps3)
+    t3 = _now()
+    if save:
+        _save_fitted({"gplvm": gplvm, "bgplvm": bgplvm, **fitted})
+    print(f"# latent: phase 11 took {t3 - t0:.1f} s (leg 1 {', '.join(f'{k} {v:.2f} s' for k, v in s1.items())}; "
+          f"leg 2 {', '.join(f'{k} {v:.2f}' for k, v in s2.items())}; leg 3 {t3 - t2:.1f} s); "
+          f"launches leg 1 {l1}, leg 2 {l2}, leg 3 {l3}")
+    if failures:
+        raise AssertionError("latent: " + "; ".join(failures))
+    return l1
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
@@ -2296,6 +2604,8 @@ def main():
     phase_default_device()
     phase_build()
     rows = phase_kernels(dev)
+    gplvm_row = _gplvm_kernel_row(dev)
+    rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], gplvm_row["max_abs_err"])
     launches, fitted, post = phase_main(dev)
     rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"],
                                     phase_tri_inv_on_main_path(post.L))
@@ -2306,6 +2616,7 @@ def main():
     approximate_launches = phase_approximate(fitted)
     del fitted, post
     zoo_launches = phase_zoo(dev)
+    latent_launches = phase_latent()
     phase_loop_protocol()
     # B1 and B2 run on the main, composite, surrogate, approximate and zoo paths,
     # B4 on the thesis path, B3 on all but the sparse leg; "launches" is the main
@@ -2332,6 +2643,7 @@ def main():
                         "launches_surrogates": surrogate_launches[key],
                         "launches_approximate": approximate_launches[key],
                         "launches_zoo": zoo_launches[key],
+                        "launches_latent": latent_launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_us": r["bound_us"], "bound_by": r["bound_by"],

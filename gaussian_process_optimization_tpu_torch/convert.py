@@ -41,6 +41,12 @@ likelihood's under ``likelihood.`` (``deg_free sigma2`` for the Student-t, and s
 on), ``X``, ``Y``; a classifier's ``kern.``, ``X``, ``Y`` and, if sparse, ``Z``; a
 Student-t process's ``kern.``, ``deg_free``, ``X``, ``Y``. A likelihood is named by
 its class (``"StudentT"``) and its link, where it has one, by the link's class.
+
+The latent-variable models (``BayesianGPLVM``, ``MRD``, ``SSGPLVM``, ``SSMRD``,
+``LVMOGP``, ``LVMOGP_MD``, ``BGPLVM_SVI``, ``IBPLFM``, ``GPOffsetRegression``) are
+carried by :func:`latent_from_leaves`: each field from the leaf of its name, a
+tuple field from ``<name>.<i>``, a kernel field from its spec; the point GPLVM
+is a GPRegression (:func:`gp_from_leaves`).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from . import kernels as kernel_module
 from .config import resolve_device, resolve_dtype
 from .kernels.base import Kernel
 from .kernels.stationary import FAMILY_CLASSES
+from .models import bgplvm_svi, gplvm, ibp_lfm, lvmogp, mrd, ss_gplvm, zoo
 from .models import likelihoods as likelihood_module
 from .models import mean_functions
 from .models.classification import GPClassification, SparseGPClassification
@@ -356,3 +363,41 @@ def tp_from_leaves(leaves: Mapping[str, np.ndarray], family: str = "rbf", dtype=
     t, kern = _placed(leaves, dtype, device)
     X = t("X")
     return TPRegression(kern=kern(family, X.shape[-1]), deg_free=t("deg_free"), X=X, Y=t("Y"))
+
+
+_LATENT = {cls.__name__: cls for cls in (
+    gplvm.BayesianGPLVM, mrd.MRD, ss_gplvm.SSGPLVM, ss_gplvm.SSMRD, lvmogp.LVMOGP,
+    lvmogp.LVMOGP_MD, bgplvm_svi.BGPLVM_SVI, ibp_lfm.IBPLFM, zoo.GPOffsetRegression)}
+
+
+def latent_from_leaves(name: str, leaves: Mapping[str, np.ndarray], kernels: Mapping,
+                       dtype=None, device=None, **static):
+    """The latent-variable model of class ``name`` (a key of ``_LATENT``) from
+    its leaves. ``kernels`` maps each kernel field (``kern``, ``kern_c``,
+    ``kern_r``) to its spec, or ``kerns`` to a list of specs, one per view.
+    Integer leaves (``out_idx``, ``sel``) stay integer; ``static`` gives the
+    static fields (``pi``, ``alpha``)."""
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+
+    def t(key):
+        v = np.asarray(leaves[key])
+        if v.dtype.kind in "iu":
+            return torch.tensor(v, device=device)
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    fields = dict(static)
+    for f in dataclasses.fields(_LATENT[name]):
+        spec = kernels.get(f.name)
+        if isinstance(spec, (list, tuple)):
+            fields[f.name] = tuple(kernel_from_leaves(leaves, s, f"{f.name}.{i}.", dtype=dtype,
+                                                      device=device) for i, s in enumerate(spec))
+        elif spec is not None:
+            fields[f.name] = kernel_from_leaves(leaves, spec, f.name + ".", dtype=dtype,
+                                                device=device)
+        elif f.name in leaves:
+            fields[f.name] = t(f.name)
+        elif f"{f.name}.0" in leaves:
+            n = sum(1 for k in leaves if k.startswith(f.name + ".") and k.count(".") == 1)
+            fields[f.name] = tuple(t(f"{f.name}.{i}") for i in range(n))
+    return _LATENT[name](**fields)

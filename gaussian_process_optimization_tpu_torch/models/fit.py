@@ -43,11 +43,17 @@ def make_objective(packer, priors: dict[str, Prior] | None = None):
             pr = priors.get(leaf_name(path))
             if pr is None:
                 continue
-            dims = tuple(range(leaf.ndim - len(shape), leaf.ndim))  # not the lanes
-            term = pr.lnpdf(leaf)
+            lanes = tuple(leaf.shape[:leaf.ndim - len(shape)])
+
+            def per_lane(v):
+                # an elementwise prior gives one term per entry, a prior on a
+                # whole (N, Q) leaf (DGPLVMPrior) one per lane or per row
+                return torch.sum(v.reshape(lanes + (-1,)), dim=-1)
+
+            term = per_lane(pr.lnpdf(leaf))
             if not fx:
-                term = term + t.log_jacobian(leaf)
-            total = total + (torch.sum(term, dim=dims) if dims else term)
+                term = term + per_lane(t.log_jacobian(leaf))
+            total = total + term
         return total
 
     def obj(U, model):

@@ -430,6 +430,28 @@ class GPRegression:
         mu, var = self.predict(x_test, posterior=posterior, noise_at_test=noise_at_test)
         return -0.5 * (LOG_2_PI + torch.log(var) + torch.square(y_test - mu) / var)
 
+    def log_predictive_density_sampling(self, x_test, y_test, num_samples: int = 1000,
+                                        generator: torch.Generator | None = None,
+                                        z: torch.Tensor | None = None, noise_at_test=None,
+                                        posterior: Posterior | None = None):
+        """Monte Carlo log p(y* | D) = log mean_s p(y* | f_s), f_s ~ p(f* | D)
+        (GPy gp.py:696), in original Y units. The standard normals ``z (M,
+        num_samples)`` are drawn from ``generator`` unless handed in."""
+        y_test = torch.as_tensor(y_test, dtype=self.X.dtype, device=self.X.device)
+        y_test = y_test.reshape(1, -1) if y_test.ndim < 2 else y_test
+        mu, var = self._raw_predict(x_test, posterior=posterior)
+        if z is None:
+            z = torch.randn((mu.shape[0], num_samples), generator=generator, dtype=mu.dtype,
+                            device=mu.device)
+        f = mu + torch.sqrt(var) * z
+        noise = self._noise_at_test(noise_at_test)
+        noise = noise[:, None] if noise.ndim == 1 else noise
+        if self.normalizer is not None:
+            f = self.normalizer.inverse_mean(f)
+            noise = self.normalizer.inverse_variance(noise)
+        lp = -0.5 * (LOG_2_PI + torch.log(noise) + torch.square(y_test - f) / noise)
+        return torch.logsumexp(lp, dim=1, keepdim=True) - math.log(z.shape[1])
+
     def posterior_covariance_between_points(self, X1, X2,
                                             posterior: Posterior | None = None):
         """K(X1, X2) - K(X, X1)^T Ky^-1 K(X, X2) in normalized space (GPy gp.py:714)."""
@@ -457,6 +479,33 @@ class GPRegression:
         data = torch.einsum("nmd,nme->mde", J, J)
         prior = torch.stack([self.kern.d2K_dXdX2_diag(x) for x in Xnew])
         return mean_jac, prior - data
+
+    def predict_wishart_embedding(self, Xnew, mean: bool = True, covariance: bool = True,
+                                  posterior: Posterior | None = None):
+        """The expected metric G = J_mu^T J_mu + P Cov[J] of the mapping
+        (GPy gp.py:521), ``(M, D, D)``."""
+        mean_jac, var_jac = self.predict_jacobian(Xnew, posterior=posterior)
+        G = torch.zeros_like(var_jac)
+        if mean:
+            G = G + torch.einsum("idp,iep->ide", mean_jac, mean_jac)
+        if covariance:
+            G = G + self.Y.shape[1] * var_jac
+        return G
+
+    def predict_magnification(self, Xnew, mean: bool = True, covariance: bool = True,
+                              dimensions=None, posterior: Posterior | None = None):
+        """sqrt(det G) per test point over ``dimensions``, by default the two
+        input dimensions of largest ARD sensitivity (GPy gp.py:556). The
+        determinant is floored at 0: in float32 the prior and data terms of G
+        cancel to a tiny negative one."""
+        G = self.predict_wishart_embedding(Xnew, mean=mean, covariance=covariance,
+                                           posterior=posterior)
+        if dimensions is None:
+            rel = self.kern.input_sensitivity().detach().cpu().numpy().reshape(-1)
+            dimensions = tuple(np.argsort(rel)[::-1][:2].tolist())
+        dims = torch.as_tensor(dimensions, device=G.device)
+        Gs = G[:, dims][:, :, dims]
+        return torch.sqrt(torch.clamp(torch.linalg.det(Gs), min=0.0))
 
     def log_likelihood_LOO(self):
         """Leave-one-out predictive log density per row

@@ -318,16 +318,56 @@ def _sum_to_lanes(g, lanes: int):
     return g.sum(dim=0, keepdim=True)
 
 
+def k_jvp_plain(X, Z, params, dX, dZ, dparams, family: str, ard: bool) -> torch.Tensor:
+    """The tangent of K (B, N, M) along (dX, dZ, dparams), any of them None:
+    dK = (dk/dr / r) sum_d u_d du_d + K dvariance / variance (+ the RatQuad
+    power's term), u_d = (x_d - z_d) / l_d. Plain PyTorch: forward-mode
+    derivatives (``GPRegression.predict_jacobian``) are off the hot path."""
+    d = X.shape[-1]
+    variance, power, ls = _unpack_params(params, ard, d)
+    zero = torch.zeros((), dtype=X.dtype, device=X.device)
+    dvar, dpow, dls = zero, zero, [zero] * d
+    if dparams is not None:
+        dvar, dpow, dls = _unpack_params(dparams, ard, d)
+    us = [(X[:, :, k, None] - Z[:, None, :, k]) / ls[k] for k in range(d)]
+    r2 = sum(u * u for u in us)
+    r = torch.sqrt(torch.clamp(r2, min=0.0))
+    inner = 0.0
+    for k, u in enumerate(us):
+        du = -u * dls[k] / ls[k]
+        if dX is not None:
+            du = du + dX[:, :, k, None] / ls[k]
+        if dZ is not None:
+            du = du - dZ[:, None, :, k] / ls[k]
+        inner = inner + u * du
+    out = k_dr_over_r(family, r, variance, power) * inner
+    out = out + k_of_r(family, r, 1.0, power) * dvar
+    if family == "ratquad":
+        out = out - k_of_r(family, r, variance, power) * torch.log1p(0.5 * r2) * dpow
+    return out
+
+
 class StationaryK(torch.autograd.Function):
     """K(X, Z) with the fused backward (the reference's ``_K_entry`` custom VJP):
     forward :func:`stationary_k_build`, backward :func:`stationary_k_backward`,
-    computing only the gradients autograd asks for."""
+    computing only the gradients autograd asks for. Forward-mode derivatives
+    (``torch.func.jvp``) take :func:`k_jvp_plain`."""
 
     @staticmethod
-    def forward(ctx, X, Z, params, family, ard):
-        ctx.save_for_backward(X, Z, params)
-        ctx.family, ctx.ard = family, ard
+    def forward(X, Z, params, family, ard):
         return stationary_k_build(X, Z, params, family, ard)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        X, Z, params, family, ard = inputs
+        ctx.save_for_backward(X, Z, params)
+        ctx.save_for_forward(X, Z, params)
+        ctx.family, ctx.ard = family, ard
+
+    @staticmethod
+    def jvp(ctx, dX, dZ, dparams, *_):
+        X, Z, params = ctx.saved_tensors
+        return k_jvp_plain(X, Z, params, dX, dZ, dparams, ctx.family, ctx.ard)
 
     @staticmethod
     def backward(ctx, G):

@@ -15,6 +15,11 @@ from ..config import config
 from . import cuda_linalg
 
 
+def tdot(X: torch.Tensor) -> torch.Tensor:
+    """X X^T, exactly symmetric (GPy tdot_blas, util/linalg.py:299)."""
+    return symmetrify(X @ X.transpose(-1, -2))
+
+
 def symmetrify(A: torch.Tensor) -> torch.Tensor:
     """Exact symmetry by copying the lower triangle (GPy util/linalg.py:356)."""
     return torch.tril(A) + torch.tril(A, -1).transpose(-1, -2)
@@ -286,6 +291,21 @@ def pdinv(A: torch.Tensor):
     L, _, _ = jitchol(A)
     Li = tri_inv_lower(L)
     return tri_tdot(Li), L, Li, logdet_from_chol(L)
+
+
+def backsub_both_sides(L: torch.Tensor, X: torch.Tensor, transpose: str = "left"):
+    """L^-T X L^-1 ('left') or L^-1 X L^-T ('right') for lower-triangular L
+    (GPy util/linalg.py:381)."""
+    if transpose == "left":
+        tmp = solve_lower_t(L, X)
+        return solve_lower_t(L, tmp.transpose(-1, -2)).transpose(-1, -2)
+    tmp = solve_lower(L, X)
+    return solve_lower(L, tmp.transpose(-1, -2)).transpose(-1, -2)
+
+
+def trace_dot(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """trace(A B) without forming the product (GPy util/linalg.py trace_dot)."""
+    return torch.sum(A * B.transpose(-1, -2), dim=(-2, -1))
 
 
 def cholupdate(L: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

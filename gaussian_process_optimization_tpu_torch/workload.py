@@ -48,6 +48,15 @@ ARD Matern52 on the inputs); the Mauna Loa composition of Rasmussen & Williams
 on a square grid with an RBF per axis; the quasi-periodic state-space GP on a
 1-D series; and every other zoo kernel on inputs of its own layout.
 
+The latent slice (``oil_like``, ``simulate_sincos``, ``latent_data``,
+``gplvm_model`` / ``gplvm_fit``, ``bgplvm_model`` / ``bgplvm_fit``,
+``latent_legs``): the gallery's data generators
+(``examples/gallery/dimensionality_reduction.py:19-40``, numpy copies); the
+point GPLVM of GPy's ``gplvm_oil_100`` (RBF ARD + Bias, Q = 6) and the Bayesian
+GPLVM of ``bgplvm_oil`` (ARD RBF, Q = 7, M = 40) on an oil-flow-shaped stand-in
+of 12 dimensions and 3 classes at N = 4096, with 256 held-out rows; and one
+short run of each other latent and zoo model.
+
 The sizes are arguments, so a test can run the same functions small.
 """
 from __future__ import annotations
@@ -669,3 +678,228 @@ def zoo_cases(n: int = N, seed: int = 0, dtype=None, device=None):
                                variance=0.6, **where), normal2),
     ]
     return [(name, k, torch.as_tensor(X, **where)) for name, k, X in cases]
+
+
+# ------------------------------------------------------------------ latent slice
+# GPy dimensionality_reduction.py gplvm_oil_100 (Q, kernel) and bgplvm_oil (Q,
+# num_inducing) on the oil data's 12 dimensions, N scaled to the bench's 4096
+LATENT_N = N
+LATENT_D = 12
+GPLVM_Q = 6
+BGPLVM_Q = 7
+BGPLVM_M = 40
+GPLVM_STEPS = 200   # the reference's max_iters is 500: a cut of depth
+BGPLVM_STEPS = 100
+HELD_OUT = 256
+
+
+def simulate_sincos(N=40, D1=6, D2=5, D3=4, seed=0):
+    """Three centred views driven by shared sin / cos latents plus private
+    signals (GPy dimensionality_reduction.py _simulate_sincos:257)."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 4 * np.pi, N)
+    s1, s2, s3 = np.sin(t), np.cos(t), np.sin(2 * t)
+    S1 = np.stack([s1, s2], 1) @ rng.standard_normal((2, D1))
+    S2 = np.stack([s1, s3], 1) @ rng.standard_normal((2, D2))
+    S3 = np.stack([s2], 1) @ rng.standard_normal((1, D3))
+    Ys = [S + 0.05 * rng.standard_normal(S.shape) for S in (S1, S2, S3)]
+    return [Y - Y.mean(0) for Y in Ys]
+
+
+def oil_like(N=60, D=12, seed=1):
+    """(centred Y, labels): an oil-flow stand-in, 3 classes in D dimensions."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((3, D)) * 2.0
+    labels = rng.integers(0, 3, N)
+    Y = centers[labels] + 0.3 * rng.standard_normal((N, D))
+    return Y - Y.mean(0), labels
+
+
+def latent_data(n: int = LATENT_N, held_out: int = HELD_OUT, d: int = LATENT_D, seed: int = 1):
+    """(Y, labels, Y_new): ``n`` training rows of ``oil_like`` and ``held_out``
+    more, the first of which has one unobserved (NaN) entry."""
+    Y, labels = oil_like(N=n + held_out, D=d, seed=seed)
+    Y_new = Y[n:].copy()
+    Y_new[0, 3] = np.nan
+    return Y[:n], labels[:n], Y_new
+
+
+def gplvm_model(Y, q: int = GPLVM_Q, dtype=None, device=None) -> GPRegression:
+    """The point GPLVM with RBF ARD + Bias on the latent, PCA start, noise 0.1."""
+    from .models.gplvm import make_gplvm
+
+    where = placement(dtype, device)
+    return make_gplvm(Y, q, kernel=RBF.create(q, ARD=True, **where) + Bias.create(q, **where),
+                      **where)
+
+
+def gplvm_fit(model: GPRegression, steps: int = GPLVM_STEPS, priors=None):
+    """``fit_gplvm``: one L-BFGS lane over the kernel, the noise and X."""
+    from .models.gplvm import fit_gplvm
+
+    return fit_gplvm(model, maxiter=steps, priors=priors)
+
+
+def bgplvm_model(Y, q: int = BGPLVM_Q, m: int = BGPLVM_M, dtype=None, device=None):
+    """The Bayesian GPLVM with an ARD RBF (``bgplvm_oil``)."""
+    from .models.gplvm import BayesianGPLVM
+
+    where = placement(dtype, device)
+    return BayesianGPLVM.create(Y, q, num_inducing=m, kernel=RBF.create(q, ARD=True, **where),
+                                **where)
+
+
+def bgplvm_fit(model, steps: int = BGPLVM_STEPS):
+    """The gallery's fit: the default packer (Y fixed, the rest free), one lane."""
+    from .models.gplvm import minimize_one
+    from .models.parameters import make_packer
+
+    return minimize_one(make_packer(model), model, steps)
+
+
+@dataclasses.dataclass(frozen=True)
+class Classifiers:
+    """A one-vs-all classifier's per-class models as one tree of leaves; its
+    log marginal likelihood is their sum."""
+
+    models: tuple = ()
+
+    def log_marginal_likelihood(self):
+        return sum(m.log_marginal_likelihood() for m in self.models)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentLeg:
+    """One model of the latent slice's third leg: ``run()`` builds and fits it
+    and returns ``(fitted, predictions)``; ``fitted`` is a tree of leaves with a
+    ``log_marginal_likelihood``; ``reduced`` names the cuts from the
+    reference's sizes."""
+
+    name: str
+    run: object
+    reduced: str = ""
+
+
+def latent_leg_data(n: int = 512, seed: int = 0) -> dict:
+    """The third leg's inputs (numpy): ``Y`` the oil stand-in, ``views`` the
+    three sin / cos views, ``x1`` / ``lv_Y`` 8 phase-shifted sines on 1-D inputs
+    (LVMOGP), ``ibp_X`` / ``ibp_Y`` three outputs on stacked (time, output)
+    rows (IBP-LFM), ``Xc`` / ``yc`` / ``cls`` a 2-D regression and its 3-class
+    labels, ``off_X`` / ``off_Y`` three shifted clusters, ``g1`` / ``g2`` /
+    ``grid_Y`` a 32 x 32 grid."""
+    rng = np.random.default_rng(seed)
+    d = {"Y": oil_like(N=n, D=LATENT_D, seed=seed + 1)[0], "views": simulate_sincos(N=n, seed=seed)}
+    x1 = np.linspace(0.0, 5.0, n)[:, None]
+    d["x1"] = x1
+    d["lv_Y"] = np.concatenate([np.sin(x1 + p) + 0.05 * rng.standard_normal((n, 1))
+                                for p in rng.uniform(0, 3, 8)], axis=1)
+    t = np.linspace(0.0, 5.0, n // 3)
+    d["ibp_X"] = np.concatenate([np.column_stack([t, np.full_like(t, k)]) for k in range(3)])
+    d["ibp_Y"] = np.concatenate([np.sin((k + 1) * t) for k in range(3)])[:, None]
+    Xc = rng.uniform(-2.0, 2.0, (n, 2))
+    yc = np.sin(2 * Xc[:, 0]) * np.cos(Xc[:, 1]) + 0.1 * rng.standard_normal(n)
+    d.update(Xc=Xc, yc=yc, cls=(yc > np.quantile(yc, 1 / 3)).astype(int)
+             + (yc > np.quantile(yc, 2 / 3)))
+    d["off_X"] = np.column_stack([x1[:, 0], np.arange(n) % 3])
+    d["off_Y"] = np.sin(x1[:, 0] + 0.3 * (np.arange(n) % 3))
+    d["g1"], d["g2"] = np.linspace(0, 1, 32)[:, None], np.linspace(0, 1, 32)[:, None]
+    d["grid_Y"] = np.sin(3 * d["g1"]) @ np.cos(2 * d["g2"]).T + 0.05 * rng.standard_normal(
+        (32, 32))
+    return d
+
+
+def latent_legs(n: int = 512, steps: int = 60, seed: int = 0, dtype=None, device=None):
+    """[LatentLeg]: MRD on the three sin / cos views, the spike-and-slab
+    GPLVM, LVMOGP, the SVI Bayesian GPLVM (minibatch Adam), the IBP latent
+    force model and the ``zoo.py`` models on :func:`latent_leg_data`, each at
+    ``n`` rows (the gallery's are 24-80) and at most ``steps`` optimizer steps
+    (the gallery's 40-60)."""
+    from .models import zoo
+    from .models.bgplvm_svi import BGPLVM_SVI, fit_bgplvm_svi
+    from .models.ibp_lfm import IBPLFM
+    from .models.lvmogp import LVMOGP, fit_lvmogp
+    from .models.mrd import MRD, fit_mrd
+    from .models.ss_gplvm import SSGPLVM, fit_ssgplvm
+
+    where = placement(dtype, device)
+    d = latent_leg_data(n, seed)
+    Y, views, x1, Xc, yc, cls = d["Y"], d["views"], d["x1"], d["Xc"], d["yc"], d["cls"]
+    g1, g2 = d["g1"], d["g2"]
+    stepped = f"{steps} steps"
+
+    def mrd():
+        m, _ = fit_mrd(MRD.create(views, 4, num_inducing=8, **where), maxiter=steps)
+        return m, []
+
+    def ssgplvm():
+        m, _ = fit_ssgplvm(SSGPLVM.create(Y, 3, num_inducing=8, **where), maxiter=steps)
+        return m, []
+
+    def lvmogp():
+        m, _ = fit_lvmogp(LVMOGP.create(x1, d["lv_Y"], 2, num_inducing=(10, 5), **where),
+                          maxiter=steps)
+        return m, [m.predict(np.linspace(-0.5, 5.5, 64)[:, None])]
+
+    def svi():
+        # the reference leaves q_S unconstrained: at batch 64 Adam drives an entry
+        # negative after ~118 steps, in float64 as in float32
+        m, _ = fit_bgplvm_svi(BGPLVM_SVI.create(views[0], 3, num_inducing=8, **where),
+                              steps=steps, batch=min(64, n))
+        return m, []
+
+    def ibp():
+        m, _ = IBPLFM.create(d["ibp_X"], d["ibp_Y"], output_dim=3, rank=2, num_inducing=10,
+                             **where).optimize(maxiter=steps // 2)
+        return m, [m.predict(d["ibp_X"][::7])]
+
+    def hetero():
+        m = zoo.GPHeteroscedasticRegression(Xc, yc[:, None], noise_vars=np.full(n, 0.05),
+                                            **where)
+        m, _ = fit_module.fit(m, num_restarts=1, maxiter=steps)
+        return m, [m.predict(torch.as_tensor(Xc[:64], **where), noise_at_test="mean")]
+
+    def kron():
+        m = zoo.GPKroneckerGaussianRegression(g1, g2, d["grid_Y"], RBF.create(1, **where),
+                                              RBF.create(1, **where), noise_var=0.1, **where)
+        m, _ = fit_module.fit(m, num_restarts=1, maxiter=steps, fix=("axes",))
+        return m, [m.predict(np.column_stack([g1[:, 0], g2[::-1, 0]]))]
+
+    def vargauss():
+        m = zoo.GPVariationalGaussianApproximation.create(Xc[:256], yc[:256], **where)
+        return m, [m.predict_latent(Xc[:64])]
+
+    def one_vs_all():
+        m = zoo.OneVsAllClassification(Xc[:256], cls[:256], **where)
+        return Classifiers(tuple(m.models.values())), [
+            torch.as_tensor(m.predict_proba(Xc[:64]))]
+
+    def one_vs_all_sparse():
+        m = zoo.OneVsAllSparseClassification(Xc, cls, num_inducing=32, **where)
+        return Classifiers(tuple(m.models.values())), [
+            torch.as_tensor(m.predict_proba(Xc[:64]))]
+
+    def bcgplvm():
+        m, _, _ = zoo.fit_bcgplvm(Y, 2, maxiter=steps, **where)
+        return m, [m.predict(m.X[:16])]
+
+    def sparse_gplvm():
+        m, _ = zoo.fit_sparse_gplvm(Y, 2, num_inducing=16, maxiter=steps, **where)
+        return m, [m.predict(m.X[:16])]
+
+    def offset():
+        m, _ = zoo.GPOffsetRegression.create(d["off_X"], d["off_Y"], **where).optimize(
+            maxiter=steps)
+        return m, [m.predict(x1[:16], cluster=1)]
+
+    return [LatentLeg("MRD", mrd, stepped), LatentLeg("SSGPLVM", ssgplvm, stepped),
+            LatentLeg("LVMOGP", lvmogp, stepped),
+            LatentLeg("BGPLVM_SVI", svi, f"{steps} Adam steps at batch 64"),
+            LatentLeg("IBPLFM", ibp, f"{steps // 2} Adam steps (EQ_ODE2's complex64 K)"),
+            LatentLeg("GPHeteroscedasticRegression", hetero, stepped),
+            LatentLeg("GPKroneckerGaussianRegression", kron, f"32 x 32 grid, {stepped}"),
+            LatentLeg("GPVariationalGaussianApproximation", vargauss, "N = 256"),
+            LatentLeg("OneVsAllClassification", one_vs_all, "N = 256"),
+            LatentLeg("OneVsAllSparseClassification", one_vs_all_sparse, "M = 32"),
+            LatentLeg("bcgplvm", bcgplvm, stepped), LatentLeg("sparse_gplvm", sparse_gplvm,
+                                                              stepped),
+            LatentLeg("GPOffsetRegression", offset, stepped)]

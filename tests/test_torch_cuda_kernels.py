@@ -732,3 +732,90 @@ def test_icm_lml_through_b1_matches_plain_route(cuda):
           f"kernels {gerr_k:.2e}, plain {gerr_p:.2e}")
     assert err_k <= 4 * max(err_p, 1e-7)
     assert gerr_k <= 4 * max(gerr_p, 1e-6)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_symmetric_k_x_gradient_is_row_plus_column_pass(lanes, cuda):
+    """A trainable X fed as both inputs of K(X, X): autograd's dX is B2's row
+    pass (dX) plus its column pass (dZ), each launched once, equal to the plain
+    route's and within 1e-4 (relative) of the float64 gradient of sum(G K)."""
+    from gaussian_process_optimization_tpu_torch.kernels import RBF
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    X0 = (torch.rand(lanes, 300, 6, generator=gen) * 4 - 2).to(cuda)
+    G = torch.randn(lanes, 300, 300, generator=gen).to(cuda)
+    ls = (0.5 + torch.rand(lanes, 6, generator=gen)).to(cuda)
+    var = (0.5 + torch.rand(lanes, generator=gen)).to(cuda)
+
+    def grad(dtype):
+        X = X0.to(dtype).requires_grad_(True)
+        kern = RBF(input_dim=6, variance=var.to(dtype), lengthscale=ls.to(dtype))
+        # float32 passes the kernel gate; float64 takes the plain route
+        (g,) = torch.autograd.grad(torch.sum(kern.K(X) * G.to(dtype)), X)
+        return g
+
+    ck.stationary_k_backward.launches_dx = ck.stationary_k_backward.launches_dz = 0
+    got = grad(torch.float32)
+    assert ck.stationary_k_backward.launches_dx == 1
+    assert ck.stationary_k_backward.launches_dz == 1
+    X3 = X0.contiguous()
+    p = ck.params_rows(RBF(input_dim=6, variance=var, lengthscale=ls), 6, True)
+    _, dX, dZ = ck.k_backward_plain(X3.double(), X3.double(), p.double(), G.double(), "rbf",
+                                    True)
+    want = grad(torch.float64)
+    torch.testing.assert_close(want, dX + dZ, rtol=1e-10, atol=1e-10)
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    assert err < 1e-4, err
+
+
+def test_padded_rows_of_a_trainable_x_get_zero_gradient_through_the_kernels(cuda):
+    """A GPLVM padded to 512 rows under a mask: the padded rows' X-gradient
+    through B1 / B2 / B3 is exactly 0."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
+
+    Y, _, _ = workload.latent_data(n=400, held_out=1)
+    m = workload.gplvm_model(Y, device=cuda)
+    m = GPRegression.create(m.X.cpu().numpy(), Y, kernel=m.kern, noise_var=0.1, max_points=512,
+                            device=cuda)
+    X = m.X.clone().requires_grad_(True)
+    ck.stationary_k_backward.launches_dz = 0
+    (g,) = torch.autograd.grad(dataclasses.replace(m, X=X).log_marginal_likelihood(), X)
+    assert ck.stationary_k_backward.launches_dz == 1
+    assert bool((g[400:] == 0).all()) and bool(torch.isfinite(g).all())
+
+
+def test_gplvm_gradient_through_the_kernels_matches_plain_route(cuda):
+    """The point GPLVM's -LML gradient (the X block included) at N = 512
+    through B1 / B2 / B3 and through the plain route, both float32, against
+    float64: the kernels' error within 4x the plain route's (plus 1e-6)."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.models.gplvm import gplvm_packer
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    Y, _, _ = workload.latent_data(n=512, held_out=1)
+    model = workload.gplvm_model(Y, device=cuda)
+    packer = gplvm_packer(model)
+    obj = make_objective(packer)
+
+    def grad(m, use_kernels):
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = use_kernels
+        try:
+            u = packer.pack(m).detach().clone().requires_grad_(True)
+            return torch.autograd.grad(obj(u, m), u)[0].double()
+        finally:
+            config.use_cuda_kernels = old
+
+    for fn in (ck.stationary_k_build, ck.stationary_k_backward, cl.tri_inv_blocks):
+        fn.launches = 0
+    got = grad(model, "auto")
+    assert ck.stationary_k_build.launches > 0 and ck.stationary_k_backward.launches > 0
+    assert cl.tri_inv_blocks.launches > 0
+    plain = grad(model, False)
+    ref = grad(tree_map(lambda t: t.double(), model), False)
+    scale = float(ref.abs().max())
+    err_k, err_p = (float((g - ref).abs().max()) / scale for g in (got, plain))
+    print(f"GPLVM f32 gradient error against float64: kernels {err_k:.3e}, plain {err_p:.3e}")
+    assert err_k <= 4.0 * err_p + 1e-6, (err_k, err_p)

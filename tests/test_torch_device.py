@@ -21,6 +21,13 @@ from gaussian_process_optimization_tpu_torch.models import multioutput
 from gaussian_process_optimization_tpu_torch.models.gp_grid import GPGridRegression
 from gaussian_process_optimization_tpu_torch.models.state_space import StateSpaceGP, from_kernel
 from gaussian_process_optimization_tpu_torch.models import mean_functions
+from gaussian_process_optimization_tpu_torch.models import zoo as zoo_models
+from gaussian_process_optimization_tpu_torch.models.bgplvm_svi import BGPLVM_SVI
+from gaussian_process_optimization_tpu_torch.models.gplvm import BayesianGPLVM, make_gplvm
+from gaussian_process_optimization_tpu_torch.models.ibp_lfm import IBPLFM
+from gaussian_process_optimization_tpu_torch.models.lvmogp import LVMOGP, LVMOGP_MD
+from gaussian_process_optimization_tpu_torch.models.mrd import MRD
+from gaussian_process_optimization_tpu_torch.models.ss_gplvm import SSGPLVM, SSMRD
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
 from gaussian_process_optimization_tpu_torch.models.classification import (
     GPClassification, SparseGPClassification, SparseGPClassificationUncertainInput)
@@ -203,6 +210,60 @@ ZOO_ENTRY_POINTS = {
         _ss_leaves(), **kw).X.device,
 }
 ENTRY_POINTS.update(ZOO_ENTRY_POINTS)
+
+
+def _oil():
+    return workload.oil_like(N=12, D=4)[0]
+
+
+def _bgplvm_leaves():
+    return convert.leaves_of(BayesianGPLVM.create(_oil(), 2, num_inducing=3, device="cpu"))
+
+
+# the latent slice's constructors and converters
+LATENT_ENTRY_POINTS = {
+    "make_gplvm": lambda **kw: make_gplvm(_oil(), 2, **kw).X.device,
+    "gplvm_model": lambda **kw: workload.gplvm_model(_oil(), 2, **kw).X.device,
+    "BayesianGPLVM.create": lambda **kw: BayesianGPLVM.create(_oil(), 2, num_inducing=3,
+                                                              **kw).q_mu.device,
+    "bgplvm_model": lambda **kw: workload.bgplvm_model(_oil(), 2, 3, **kw).Z.device,
+    "MRD.create": lambda **kw: MRD.create([_oil(), _oil()[:, :2]], 2, num_inducing=3,
+                                          **kw).q_mu.device,
+    "SSGPLVM.create": lambda **kw: SSGPLVM.create(_oil(), 2, num_inducing=3, **kw).q_gamma.device,
+    "SSMRD.create": lambda **kw: SSMRD.create([_oil(), _oil()], 2, num_inducing=3,
+                                              **kw).q_gamma.device,
+    "LVMOGP.create": lambda **kw: LVMOGP.create(_data()[0][:, :1], _oil()[:, :3], 1,
+                                                num_inducing=(3, 2), **kw).qU_mean.device,
+    "LVMOGP_MD.create": lambda **kw: LVMOGP_MD.create(_data()[0][:, :1], [0, 1] * 6,
+                                                      _data()[1][:, 0], 2, 1,
+                                                      num_inducing=(3, 2), **kw).out_idx.device,
+    "BGPLVM_SVI.create": lambda **kw: BGPLVM_SVI.create(_oil(), 2, num_inducing=3,
+                                                        **kw).qU_A.device,
+    "IBPLFM.create": lambda **kw: IBPLFM.create([[0.0, 0.0], [1.0, 1.0]], [0.1, 0.2], 2, 1,
+                                                num_inducing=2, **kw).tau.device,
+    "GPHeteroscedasticRegression": lambda **kw: zoo_models.GPHeteroscedasticRegression(
+        *_data(), **kw).X.device,
+    "GPKroneckerGaussianRegression": lambda **kw: zoo_models.GPKroneckerGaussianRegression(
+        [[0.0], [1.0]], [[0.0], [1.0]], [[0.1, 0.2], [0.3, 0.4]],
+        zoo.RBF.create(1, device="cpu"), zoo.RBF.create(1, device="cpu"), **kw).Y.device,
+    "GPVariationalGaussianApproximation.create":
+        lambda **kw: zoo_models.GPVariationalGaussianApproximation.create(
+            _data()[0], _data()[1][:, 0], **kw).X.device,
+    "OneVsAllClassification": lambda **kw: next(iter(zoo_models.OneVsAllClassification(
+        _data()[0], [0, 1, 2] * 4, **kw).models.values())).X.device,
+    "OneVsAllSparseClassification": lambda **kw: next(iter(
+        zoo_models.OneVsAllSparseClassification(_data()[0], [0, 1, 2] * 4, num_inducing=3,
+                                                **kw).models.values())).Z.device,
+    "fit_bcgplvm": lambda **kw: zoo_models.fit_bcgplvm(_oil(), 2, maxiter=0, **kw)[0].X.device,
+    "fit_sparse_gplvm": lambda **kw: zoo_models.fit_sparse_gplvm(
+        _oil(), 2, num_inducing=3, maxiter=0, **kw)[0].Z.device,
+    "GPOffsetRegression.create": lambda **kw: zoo_models.GPOffsetRegression.create(
+        [[0.0, 0.0], [1.0, 1.0]], [0.1, 0.2], **kw).offset.device,
+    "latent_from_leaves": lambda **kw: convert.latent_from_leaves(
+        "BayesianGPLVM", _bgplvm_leaves(), {"kern": {"class": "RBF", "input_dim": 2}},
+        **kw).q_S.device,
+}
+ENTRY_POINTS.update(LATENT_ENTRY_POINTS)
 
 
 @pytest.fixture

@@ -213,3 +213,11 @@ def test_scan_covers_the_zoo_modules():
             "kernels/integral.py", "kernels/ode.py", "kernels/lfm.py", "kernels/symbolic.py",
             "kernels/__init__.py", "models/multioutput.py", "models/gp_grid.py",
             "models/state_space.py"} <= scanned
+
+
+def test_scan_covers_the_latent_modules():
+    """The latent slice's modules are in the no-jax scan (it walks the package)."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"models/gplvm.py", "models/inference_x.py", "models/mrd.py", "models/ss_gplvm.py",
+            "models/lvmogp.py", "models/bgplvm_svi.py", "models/ibp_lfm.py", "models/zoo.py",
+            "utils/priors.py", "ops/linalg.py"} <= scanned
