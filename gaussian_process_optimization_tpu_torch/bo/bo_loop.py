@@ -7,8 +7,8 @@ the next batch, evaluate the objective. A fit whose posterior factorization
 fails even after one retry ends the run (bo.py:134-137). The loop is host
 Python; the surrogate and the acquisition run on the surrogate's device.
 ``fit_seconds`` is the host-clock time of the last refit; ``seconds`` sums the
-run's fit, acquisition and objective phases. The two plot methods of the
-reference are not ported.
+run's fit, acquisition and objective phases. ``plot_acquisition`` and
+``plot_convergence`` draw the reference's two diagnostics (``utils/plotting``).
 """
 from __future__ import annotations
 
@@ -222,6 +222,27 @@ class BO:
         iterations = np.arange(1, params.shape[0] + 1)[:, None]
         header = ["Iteration"] + list(self.model.get_model_parameters_names())
         self._write_tsv(models_file, header, np.hstack([iterations, params]))
+
+    # ------------------------------------------------------------------ plots
+    def plot_acquisition(self, filename=None, label_x=None, label_y=None):
+        """The surrogate and the acquisition over a 1-D or 2-D space, with the
+        next suggestion (bo.py plot_acquisition). The padded rows of the
+        surrogate's buffers are left out."""
+        from ..utils.plotting import plot_acquisition
+        from ..utils.plotting_library import _model_xy
+
+        suggested = self.suggest_next_locations()
+        Xd, Yd = _model_xy(self.model.model)
+        return plot_acquisition(self.acquisition.space.get_bounds(), Xd.shape[1], self.model,
+                                Xd, Yd, self.acquisition.acquisition_function, suggested,
+                                filename=filename, label_x=label_x, label_y=label_y)
+
+    def plot_convergence(self, filename=None):
+        """Distances between consecutive x's and the best y so far (bo.py
+        plot_convergence)."""
+        from ..utils.plotting import plot_convergence
+
+        return plot_convergence(self.X, self.Y_best, filename)
 
     def get_evaluations(self):
         return self.X.copy(), self.Y.copy()

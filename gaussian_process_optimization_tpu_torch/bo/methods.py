@@ -11,8 +11,9 @@ optimizers lbfgs, lbfgs_host, DIRECT and CMA; all six initial designs; every
 cost (None, 'evaluation_time', a callable).
 ``device`` and ``dtype`` kwargs place the surrogate (on the card in float32 by
 default; ``device="cpu"`` for the CPU, in float64 unless ``dtype`` says otherwise); ``mean_function`` and ``priors`` go to
-the surrogate. A kwarg the port does not read raises, so a setting is never
-silently dropped.
+the surrogate. ``mesh`` (a ``parallel/sharded.Mesh``) shards the GP's fit
+restarts and the acquisition's sweep and anchor polish over its devices. A
+kwarg the port does not read raises, so a setting is never silently dropped.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from ..models.mcmc_bo_model import GPModel_MCMC
 from ..models.rf_model import RFModel
 from ..models.sparse_bo_model import SparseGPModel
 from ..models.warped_bo_model import InputWarpedGPModel, WarpedGPModel
+from ..parallel import sharded
 from .acquisitions import AcquisitionEI, AcquisitionLCB, AcquisitionLP, AcquisitionMPI
 from .acquisitions_mcmc import AcquisitionEI_MCMC, AcquisitionLCB_MCMC, AcquisitionMPI_MCMC
 from .entropy_search import AcquisitionEntropySearch, AcquisitionEntropySearchEPMGP
@@ -40,7 +42,7 @@ from .variables import InvalidConfigError
 _KWARGS = {
     # the surrogate (arguments_manager.py:80)
     "kernel", "ARD", "Gower", "noise_var", "optimizer", "max_iters", "optimize_restarts",
-    "verbosity_model", "mean_function", "priors", "device", "dtype",
+    "verbosity_model", "mean_function", "priors", "device", "dtype", "mesh",
     # sparseGP's and GP_MCMC's (arguments_manager.py:80-137)
     "num_inducing", "n_samples", "n_burnin", "subsample_interval", "step_size",
     "leapfrog_steps",
@@ -59,6 +61,7 @@ class ArgumentsManager:
         unknown = set(kwargs) - _KWARGS
         if unknown:
             raise NotImplementedError(f"options not ported: {sorted(unknown)}")
+        sharded.check_mesh(kwargs.get("mesh"))
         self.kwargs = kwargs
 
     def model_creator(self, model_type, exact_feval, space, seed=0):
@@ -73,7 +76,7 @@ class ArgumentsManager:
         fit = dict(optimizer=kw.get("optimizer", "lbfgs"), max_iters=kw.get("max_iters", 1000),
                    optimize_restarts=kw.get("optimize_restarts", 5), ARD=kw.get("ARD", False))
         if model_type == "GP":
-            extra = {k: kw[k] for k in ("mean_function", "priors") if k in kw}
+            extra = {k: kw[k] for k in ("mean_function", "priors", "mesh") if k in kw}
             return GPModel(Gower=kw.get("Gower", False), space=space, **common, **fit, **extra)
         if model_type == "sparseGP":
             return SparseGPModel(num_inducing=kw.get("num_inducing", 10), **common, **fit)
@@ -185,7 +188,7 @@ class BayesianOptimization(BO):
             self.space, acquisition_optimizer_type, model=model,
             design_type=kwargs.get("anchor_points_design", "random"),
             num_samples=kwargs.get("anchor_points_samples", 1000),
-            num_anchor=kwargs.get("anchor_points_num", 5))
+            num_anchor=kwargs.get("anchor_points_num", 5), mesh=kwargs.get("mesh"))
         self.acquisition_type = acquisition_type
         acquisition = args.acquisition_creator(
             acquisition_type, model, self.space, self.acquisition_optimizer,

@@ -14,9 +14,10 @@ Two paths, chosen as the reference chooses (``optimize``):
   anchors scored by the host acquisition and scipy L-BFGS-B (or DIRECT, or
   CMA-ES) from each anchor, one point per call of the acquisition.
 
-Context variables are held by collapsing their bounds to a point. The
-reference's ``mesh`` argument (the sweep and the anchors sharded over devices)
-is not ported.
+Context variables are held by collapsing their bounds to a point. With a
+``mesh`` (``parallel/sharded.Mesh``) the device path shards the sweep's rows
+and the anchor lanes over its ``'data'`` axis, each padded up to a multiple of
+the axis size with copies of its first row (the padding is dropped after).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import lbfgs
+from ..parallel import sharded
 from .anchor_points import ObjectiveAnchorPointsGenerator
 from .designs import initial_design
 from .variables import FullyExploredOptimizationDomainError
@@ -63,10 +65,10 @@ class AcquisitionOptimizer:
     points, ``num_anchor`` anchors, ``maxiter`` L-BFGS steps. ``optimizer`` is
     'lbfgs' (the device path), 'lbfgs_host' (scipy L-BFGS-B on the host
     acquisition), 'DIRECT' or 'CMA'. The sweep's seed starts at ``seed`` and
-    steps by one per call."""
+    steps by one per call. ``mesh`` shards the device path."""
 
     def __init__(self, space, optimizer="lbfgs", model=None, design_type="random",
-                 num_samples=SWEEP, num_anchor=ANCHORS, maxiter=MAXITER, seed=0):
+                 num_samples=SWEEP, num_anchor=ANCHORS, maxiter=MAXITER, seed=0, mesh=None):
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown acquisition optimizer {optimizer!r}; "
                              f"one of {OPTIMIZERS}")
@@ -79,6 +81,7 @@ class AcquisitionOptimizer:
         self.maxiter = maxiter
         self.context_manager = None
         self._seed = seed
+        self.mesh = sharded.check_mesh(mesh)
 
     def optimize(self, acq, duplicate_manager=None):
         """(x_min (1, model_dim), fx_min (1, 1)) as numpy (:45-79): the device
@@ -124,11 +127,23 @@ class AcquisitionOptimizer:
         space = self.space
         cm = self.context_manager
         gp, post, fmin, state = acq.device_args()
+        args = (gp, post, fmin, state)
+
+        def neg_acq(A, a):
+            return acq.pure_neg_acq(*a, A)
+
+        def t(a):
+            return torch.as_tensor(a, dtype=gp.X.dtype, device=gp.X.device)
+
+        if self.mesh is not None:
+            sweep = sharded.make_sharded_sweep(lambda a, A: neg_acq(A, a), self.mesh)
 
         def score(Xm):
             with torch.no_grad():
-                X = torch.as_tensor(Xm, dtype=gp.X.dtype, device=gp.X.device)
-                return acq.pure_neg_acq(gp, post, fmin, state, X).cpu().numpy()
+                if self.mesh is None:
+                    return neg_acq(t(Xm), args).cpu().numpy()
+                Xp, n = self._pad_rows(Xm)
+                return sweep(args, t(Xp))[:n].cpu().numpy()
 
         # 1) anchor sweep: sample, drop duplicates, score, best num_anchor
         self._seed += 1
@@ -152,16 +167,17 @@ class AcquisitionOptimizer:
         #    an acquisition without gradients (entropy search's argmin counts)
         #    keeps its anchors: the sweep covers the box
         lo, hi = self._box()
-
-        def t(a):
-            return torch.as_tensor(a, dtype=gp.X.dtype, device=gp.X.device)
-
         xs = anchors
         if acq.analytical_gradient_prediction:
-            res = lbfgs.minimize(lambda A: acq.pure_neg_acq(gp, post, fmin, state, A),
-                                 t(anchors), lower=t(lo), upper=t(hi), maxiter=self.maxiter,
-                                 carry_graph=False)
-            xs = res.x.cpu().numpy()
+            fun = lambda A: neg_acq(A, args)  # noqa: E731
+            starts, n = anchors, anchors.shape[0]
+            if self.mesh is not None:
+                fun = sharded.sharded_lanes(
+                    self.mesh, neg_acq, [sharded.place(args, d) for d in self.mesh.shards()])
+                starts, n = self._pad_rows(anchors)
+            res = lbfgs.minimize(fun, t(starts), lower=t(lo), upper=t(hi),
+                                 maxiter=self.maxiter, carry_graph=False)
+            xs = res.x[:n].cpu().numpy()
 
         # 3) round, re-apply context, re-score, drop duplicates, select; the
         #    anchors are the fallback
@@ -170,6 +186,13 @@ class AcquisitionOptimizer:
         if space.has_constraints():
             fC = np.where(space.indicator_constraints(C).flatten() == 1, fC, np.inf)
         return self._select(C, fC, duplicate_manager)
+
+    def _pad_rows(self, X):
+        """``(X padded with copies of its first row up to a multiple of the
+        mesh's 'data' axis, the real row count)``."""
+        n = X.shape[0]
+        n_pad = -(-n // self.mesh.shape["data"]) * self.mesh.shape["data"]
+        return np.vstack([X, np.repeat(X[:1], n_pad - n, axis=0)]), n
 
     # ------------------------------------------------------------- host path
     def optimize_host(self, f=None, f_df=None, duplicate_manager=None):

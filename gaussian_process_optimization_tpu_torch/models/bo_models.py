@@ -22,7 +22,10 @@ arguments, kept and unused (the fit is this package's L-BFGS).
 Tensors live on ``device`` (the card unless another is named) in ``dtype``
 (float32 on the card and float64 on the CPU unless another is named);
 fit restarts draw from ``generator`` (a ``torch.Generator`` on that device,
-seeded from ``seed`` by default).
+seeded from ``seed`` by default). With a ``mesh`` (``parallel/sharded.Mesh``)
+the restarts shard over its ``'data'`` axis
+(``sharded.make_sharded_multistart_fit``): ceil(optimize_restarts / shards)
+per shard, so the total rounds up to a multiple of the axis size.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from ..config import config, resolve_device, resolve_dtype
 from ..kernels.gower import Gower
 from ..kernels.stationary import Matern52
+from ..parallel import sharded
 from .fit import Fitter
 from .gp import GPRegression
 from ..utils.tree import leaf_name, named_leaves
@@ -54,7 +58,7 @@ class GPModel:
     def __init__(self, kernel=None, noise_var=None, exact_feval=False, optimizer="lbfgs",
                  max_iters=1000, optimize_restarts=5, verbose=False, ARD=False, Gower=False,
                  space=None, mean_function=None, priors=None, seed=0, device=None,
-                 dtype=None, generator=None):
+                 dtype=None, generator=None, mesh=None):
         self.kernel_template = kernel
         self.noise_var = noise_var
         self.exact_feval = exact_feval
@@ -72,6 +76,7 @@ class GPModel:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = generator
+        self.mesh = sharded.check_mesh(mesh)
         self.model: GPRegression | None = None
         self.posterior = None
         self.ladder: list[dict] = []
@@ -127,10 +132,15 @@ class GPModel:
                 fix, overrides = ("likelihood_variance",), None
             else:
                 fix, overrides = (), {"likelihood_variance": bounded_noise_transform()}
-            self._fitters[bucket] = Fitter(self.model, num_restarts=self.optimize_restarts,
-                                           maxiter=self.max_iters, fix=fix,
-                                           transform_overrides=overrides,
-                                           priors=self.priors)
+            kw = dict(maxiter=self.max_iters, fix=fix, transform_overrides=overrides,
+                      priors=self.priors)
+            if self.mesh is None:
+                self._fitters[bucket] = Fitter(self.model, num_restarts=self.optimize_restarts,
+                                               **kw)
+            else:
+                per_shard = max(1, -(-self.optimize_restarts // self.mesh.shape["data"]))
+                self._fitters[bucket] = sharded.make_sharded_multistart_fit(
+                    self.model, self.mesh, restarts_per_device=per_shard, **kw)
         return self._fitters[bucket]
 
     def updateModel(self, X_all, Y_all, X_new=None, Y_new=None):

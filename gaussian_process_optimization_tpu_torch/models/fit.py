@@ -72,12 +72,20 @@ class Fitter:
     draws routed through each transform's ``random_restart``. ``fix`` and
     ``transform_overrides`` go to :func:`make_packer`, ``priors`` to
     :func:`make_objective`. The objective factors with the model's own ladder
-    hint and policy (``GPRegression.jitter_hint``, ``jitter_greedy``)."""
+    hint and policy (``GPRegression.jitter_hint``, ``jitter_greedy``). With a
+    ``mesh`` (``parallel/sharded.Mesh``) the restart lanes are split across its
+    shards, each block evaluated on its shard's device
+    (``sharded.sharded_lanes``); ``num_restarts`` must then be a multiple of
+    the axis size."""
 
     def __init__(self, template_model: Any, num_restarts: int = 5, maxiter: int = 1000,
                  tol: float = 1e-5, fix: tuple = (), transform_overrides: dict | None = None,
                  priors: dict[str, Prior] | None = None, history: int = HISTORY,
-                 max_ls: int = MAX_LS):
+                 max_ls: int = MAX_LS, mesh=None):
+        if mesh is not None and num_restarts % mesh.shape["data"]:
+            raise ValueError(f"{num_restarts} restarts do not split over "
+                             f"{mesh.shape['data']} shards")
+        self.mesh = mesh
         self.packer = make_packer(template_model, fix=fix,
                                   transform_overrides=transform_overrides)
         self.num_restarts = num_restarts
@@ -104,10 +112,18 @@ class Fitter:
         with the best finite lane's parameters. ``evaluations`` counts the
         batched objective calls (one forward of every lane each)."""
         self.evaluations = 0
+        if self.mesh is None:
+            def batched(U):
+                return self.objective(U, model)
+        else:
+            from ..parallel import sharded
+
+            batched = sharded.sharded_lanes(
+                self.mesh, self.objective, [sharded.place(model, d) for d in self.mesh.shards()])
 
         def objective(U):
             self.evaluations += 1
-            return self.objective(U, model)
+            return batched(U)
 
         res = lbfgs.minimize(objective, starts,
                              maxiter=self.maxiter, tol=self.tol, history=self.history,

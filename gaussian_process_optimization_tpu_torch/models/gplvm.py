@@ -187,7 +187,7 @@ class BayesianGPLVM:
         m = self.Z.shape[0]
         _, psi1, psi2 = rbf_psi_stats(self.kern, self.Z, self.q_mu, self.q_S)
         Lm, _, _ = linalg.jitchol(self.kern.K(self.Z) + 1e-6 * _eye(m, psi2))
-        A = linalg.backsub_both_sides(Lm, psi2, "right") / sigma2
+        A = scaled_psi2(Lm, psi2, sigma2)
         LB, _, _ = linalg.jitchol(_eye(m, A) + A)
         wv = linalg.solve_lower_t(
             Lm, linalg.cho_solve(LB, linalg.solve_lower(Lm, psi1.transpose(0, 1) @ self.Y))
@@ -229,7 +229,7 @@ def collapsed_bound_from_psi(kern, Z, noise_var, Y, psi0, psi1, psi2):
     n, p = Y.shape
     m = Z.shape[0]
     Lm, _, _ = linalg.jitchol(kern.K(Z) + 1e-6 * _eye(m, psi2))
-    A = linalg.backsub_both_sides(Lm, psi2, "right") / sigma2
+    A = scaled_psi2(Lm, psi2, sigma2)
     LB, _, _ = linalg.jitchol(_eye(m, A) + A)
     c = linalg.solve_lower(LB, linalg.solve_lower(Lm, psi1.transpose(0, 1) @ Y)) / sigma2
     return (-0.5 * n * p * (LOG_2_PI + torch.log(sigma2))
@@ -237,6 +237,21 @@ def collapsed_bound_from_psi(kern, Z, noise_var, Y, psi0, psi1, psi2):
             - 0.5 * torch.sum(torch.square(Y)) / sigma2
             + 0.5 * torch.sum(torch.square(c))
             - 0.5 * p / sigma2 * (psi0 - torch.trace(A) * sigma2))
+
+
+def scaled_psi2(Lm, psi2, sigma2):
+    """A = Lm^-1 psi2 Lm^-T / sigma2, the Gram that B = I + A adds to the
+    identity. Float64 takes the reference's two triangular solves. In float32
+    at an ill-conditioned Kmm those solves cancel: at the Bayesian GPLVM's
+    fitted point (cond(Kmm) ~ 2e5) the symmetric part of their A has
+    eigenvalues near -70 where float64's least is 0.27, below every rung of
+    the jitter ladder, and the bound is NaN. There A is formed as W W^T with
+    W = Lm^-1 chol(psi2), positive semidefinite by construction, so B always
+    factors."""
+    if psi2.dtype == torch.float32:
+        Lp, _, _ = linalg.jitchol(psi2)
+        return linalg.tdot(linalg.solve_lower(Lm, Lp)) / sigma2
+    return linalg.backsub_both_sides(Lm, psi2, "right") / sigma2
 
 
 def gaussian_kl(q_mu, q_S):

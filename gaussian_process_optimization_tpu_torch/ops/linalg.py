@@ -182,13 +182,19 @@ class _JitChol(torch.autograd.Function):
     @staticmethod
     def backward(ctx, L_bar, *_):
         (L,) = ctx.saved_tensors
-        W = torch.tril(L.transpose(-1, -2) @ L_bar)
-        W.diagonal(dim1=-2, dim2=-1).mul_(0.5)
-        Lt = L.transpose(-1, -2)
-        tmp = torch.linalg.solve_triangular(Lt, W, upper=True)
-        S = torch.linalg.solve_triangular(Lt, tmp.transpose(-1, -2), upper=True)
-        S = S.transpose(-1, -2)
-        return 0.5 * (S + S.transpose(-1, -2)), None, None
+        return cholesky_pullback(L, L_bar), None, None
+
+
+def cholesky_pullback(L: torch.Tensor, L_bar: torch.Tensor) -> torch.Tensor:
+    """A_bar of L = chol(A) given L_bar: (S + S^T) / 2 with
+    S = L^-T Phi(L^T L_bar) L^-1, Phi the lower triangle with a halved diagonal."""
+    W = torch.tril(L.transpose(-1, -2) @ L_bar)
+    W.diagonal(dim1=-2, dim2=-1).mul_(0.5)
+    Lt = L.transpose(-1, -2)
+    tmp = torch.linalg.solve_triangular(Lt, W, upper=True)
+    S = torch.linalg.solve_triangular(Lt, tmp.transpose(-1, -2), upper=True)
+    S = S.transpose(-1, -2)
+    return 0.5 * (S + S.transpose(-1, -2))
 
 
 def jitchol(A: torch.Tensor, k_start=None, greedy: bool = False):

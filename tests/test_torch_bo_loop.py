@@ -284,7 +284,7 @@ def test_every_model_and_acquisition_is_accepted(model_type, acquisition, extra)
 
 
 @pytest.mark.parametrize("kw,error,match", (
-    [(dict(mesh=object()), NotImplementedError, "mesh"),
+    [(dict(mesh=object()), TypeError, "mesh"),
        (dict(pool=object()), NotImplementedError, "pool"),
        (dict(model_type="forest"), InvalidConfigError, "forest"),
        (dict(acquisition_type="UCB"), InvalidConfigError, "UCB"),

@@ -16,6 +16,9 @@ from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
 from gaussian_process_optimization_tpu_torch.workload import bench_data, make_model
 from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+from gaussian_process_optimization_tpu_torch.config import config
+from gaussian_process_optimization_tpu_torch.parallel import sharded
+from gaussian_process_optimization_tpu_torch.utils import cluster
 
 pytestmark = pytest.mark.cuda
 
@@ -819,3 +822,80 @@ def test_gplvm_gradient_through_the_kernels_matches_plain_route(cuda):
     err_k, err_p = (float((g - ref).abs().max()) / scale for g in (got, plain))
     print(f"GPLVM f32 gradient error against float64: kernels {err_k:.3e}, plain {err_p:.3e}")
     assert err_k <= 4.0 * err_p + 1e-6, (err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_distributed_cholesky_through_the_kernel_matches_cholesky_ex(cuda, n_shards):
+    """float32, N = 2048 in panels of 256 over 1 or 4 shards of the card: the
+    diagonal blocks through the batched Cholesky kernel, against the same
+    panel loop through ``cholesky_ex`` and against float64 LAPACK; the kernel
+    launches once per panel."""
+    rng = np.random.default_rng(2)
+    Xr = rng.standard_normal((2048, 64))
+    A64 = Xr @ Xr.T / 64 + np.eye(2048)
+    A = torch.tensor(A64, dtype=torch.float32, device=cuda)
+    chol = sharded.make_distributed_cholesky(sharded.make_mesh(n_shards, device="cuda:0"), nb=256)
+    old = config.cuda_chol_blocks
+    try:
+        config.cuda_chol_blocks = False
+        L_plain = chol(A)
+        config.cuda_chol_blocks = True
+        before = cl.cholesky_blocks.launches
+        L_kernel = chol(A)
+        assert cl.cholesky_blocks.launches - before == 2048 // 256
+    finally:
+        config.cuda_chol_blocks = old
+    L64 = np.linalg.cholesky(A64)
+    err_kernel = np.abs(L_kernel.double().cpu().numpy() - L64).max()
+    err_plain = np.abs(L_plain.double().cpu().numpy() - L64).max()
+    print(f"distributed Cholesky f32 vs f64: kernel {err_kernel:.3e}, cholesky_ex "
+          f"{err_plain:.3e}")
+    assert err_kernel <= 4 * max(err_plain, 1e-6)
+    np.testing.assert_allclose(L_kernel.cpu().numpy(), L_plain.cpu().numpy(), atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cluster_round_through_the_kernels_matches_plain_k(cuda):
+    """One round of 10 lanes (4 singles, 6 pairs of tests/test_cluster.py's
+    two shifted copies of two curves, noise 0.1) padded to 128 rows (the K
+    kernel's gate wants 128^2 entries a lane) in float32 on the card: the
+    lanes' objective and gradient at the start through the K kernel and its
+    backward equal the plain K's to 1e-4, and after 60 L-BFGS steps each
+    lane's LL agrees to 1e-2 (the two runs' rounding steers the line
+    searches apart) and its offset to 0.05."""
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 3, 10)[:, None]
+    curves = [np.sin(2.0 * (t - d)) for d in (0.0, 0.4)] + [2.0 - 2.0 * (t - d)
+                                                          for d in (0.0, 0.4)]
+    data = [c.T + 0.1 * rng.standard_normal((1, 10)) for c in curves]
+    jobs = [(t, data[i].T, np.zeros(10)) for i in range(4)]
+    jobs += [(np.vstack([t, t]), np.vstack([data[i].T, data[j].T]),
+              np.r_[np.zeros(10), np.ones(10)]) for i in range(4) for j in range(i)]
+    batch = cluster.pad_stack(jobs, 128, torch.float32, cuda)
+    U0 = cluster._u0(len(jobs), torch.float32, cuda).clone()
+
+    def start_and_fit():
+        U = U0.clone().requires_grad_(True)
+        f = -cluster._masked_lml(U, *batch, True)
+        (g,) = torch.autograd.grad(f.sum(), U)
+        return f.detach(), g, cluster.fit_batch(U0, *batch, True, 60)
+
+    b1, b2 = ck.stationary_k_build.launches, ck.stationary_k_backward.launches
+    f, g, (ll, off) = start_and_fit()
+    assert ck.stationary_k_build.launches > b1 and ck.stationary_k_backward.launches > b2
+    old = config.use_cuda_kernels
+    try:
+        config.use_cuda_kernels = False
+        f_p, g_p, (ll_p, off_p) = start_and_fit()
+    finally:
+        config.use_cuda_kernels = old
+    print(f"cluster round f32, kernel vs plain: start value "
+          f"{float(((f - f_p).abs() / f_p.abs()).max()):.3e}, gradient "
+          f"{float((g - g_p).abs().max() / g_p.abs().max()):.3e}; fitted LL "
+          f"{float(((ll - ll_p).abs() / ll_p.abs()).max()):.3e}, offsets "
+          f"{float((off - off_p).abs().max()):.3e}")
+    torch.testing.assert_close(f, f_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(g, g_p, rtol=1e-4, atol=1e-4 * float(g_p.abs().max()))
+    torch.testing.assert_close(ll, ll_p, rtol=1e-2, atol=1e-1)
+    torch.testing.assert_close(off.detach(), off_p.detach(), rtol=0, atol=5e-2)

@@ -42,6 +42,8 @@ from gaussian_process_optimization_tpu_torch.models.warped import (InputWarpedGP
                                                                    WarpedGP)
 from gaussian_process_optimization_tpu_torch.models.warped_bo_model import (InputWarpedGPModel,
                                                                             WarpedGPModel)
+from gaussian_process_optimization_tpu_torch.parallel import sharded
+from gaussian_process_optimization_tpu_torch.utils import cluster
 
 
 def _data():
@@ -264,6 +266,27 @@ LATENT_ENTRY_POINTS = {
         **kw).q_S.device,
 }
 ENTRY_POINTS.update(LATENT_ENTRY_POINTS)
+
+
+def _series(fn, **kw):
+    """A tiny clustering call; the device it ran on is the one asked for."""
+    t = [[0.0], [1.0], [2.0]]
+    fn([[[0.1, 0.5, 0.2]], [[0.0, 0.4, 0.3]]], [t, t], **kw)
+    return torch.device(kw["device"])
+
+
+# the multi-device layer: a mesh holds the devices its sharded functions run on
+ENTRY_POINTS.update({
+    "make_mesh": lambda **kw: sharded.make_mesh(2, **kw).shards()[0],
+    "Mesh": lambda **kw: sharded.Mesh([kw["device"]] * 2 if kw else None).shards()[0],
+    "cluster": lambda **kw: _series(lambda d, x, **k: cluster.cluster(d, x, maxiter=2, **k),
+                                    **kw),
+    "get_log_likelihood": lambda **kw: _series(
+        lambda d, x, **k: cluster.get_log_likelihood(x, d, [0, 1], maxiter=2, **k), **kw),
+    "get_log_likelihood_offset": lambda **kw: _series(
+        lambda d, x, **k: cluster.get_log_likelihood_offset(x, d, [0, 1], maxiter=2, **k),
+        **kw),
+})
 
 
 @pytest.fixture

@@ -8,6 +8,8 @@ JAX models' leaves through ``convert``; each tolerance is stated where it is
 used. The X-gradient is also held in float32 with the JAX package's Pallas
 kernels in interpret mode beside the port's kernel wrappers, whose plain
 versions (``k_build_plain``, ``k_backward_plain``) run for CPU tensors."""
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,6 +72,28 @@ def port_latent(name, jm, **static):
     if hasattr(jm, "kerns"):
         kernels["kerns"] = [spec_of(k) for k in jm.kerns]
     return convert.latent_from_leaves(name, jax_leaves(jm, ""), kernels, device="cpu", **static)
+
+
+FITTED = Path(__file__).parent / "data" / "latent_card_fitted.npz"
+
+
+def saved_leaves(name):
+    """The leaves of one model in ``FITTED`` (the card's fitted point of
+    ``chip_smoke.py`` phase 11), keyed by their port path."""
+    data = np.load(FITTED)
+    return {k[len(name) + 1:]: data[k] for k in data.files if k.startswith(name + "/")}
+
+
+def with_leaves(template, saved):
+    """``template`` with each leaf whose port path is in ``saved`` replaced."""
+    flat, treedef = jax.tree_util.tree_flatten_with_path(template)
+    out = []
+    for path, leaf in flat:
+        key = ".".join(str(getattr(e, "name", getattr(e, "idx", getattr(e, "key", ""))))
+                       for e in path)
+        out.append(jnp.asarray(saved[key], dtype=jnp.asarray(leaf).dtype) if key in saved
+                   else leaf)
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def value_and_grad_both(jobj, jpacker, jm, tobj, tpacker, tm, u=None):
@@ -196,6 +220,40 @@ def test_bgplvm_elbo_and_gradient_match_jax(bgplvm_pair):
                                          tpk, tm, u=u)
     np.testing.assert_allclose(ft, fj, rtol=RTOL)
     np.testing.assert_allclose(gt, gj, rtol=1e-8, atol=1e-10 * np.abs(gj).max())
+
+
+def test_f32_bgplvm_elbo_is_finite_at_the_cards_fitted_leaves():
+    """At the card's fitted Bayesian GPLVM (N = 4096, Q = 7, M = 40, cond(Kmm)
+    ~ 2e5) float32's I + A is indefinite through the reference's two solves;
+    the JAX package's float32 -ELBO is finite there (rel 7.0e-2 against
+    float64), so the port's must be too (ROADMAP C13), and no further than
+    1.5x the JAX package's gap from float64 (the port's float64 value is the
+    JAX package's to 3e-11). The jitter rung that float32's chol(psi2) takes
+    is printed: the port's A is built on it."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    Y, _, _ = workload.latent_data()
+    start = jg.BayesianGPLVM.create(Y, 7, num_inducing=40, kernel=jk.RBF.create(7, ARD=True))
+    jm = with_leaves(start, saved_leaves("bgplvm"))
+    with jax.enable_x64(False):
+        j32 = -float(jax.tree_util.tree_map(
+            lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a,
+            jm).elbo())
+    tm = port_latent("BayesianGPLVM", jm)
+    with torch.no_grad():
+        t64 = -float(tm.elbo())
+        tm32 = tree_map(lambda t: t.to(torch.float32), tm)
+        t32 = -float(tm32.elbo())
+        _, _, psi2 = tg.rbf_psi_stats(tm32.kern, tm32.Z, tm32.q_mu, tm32.q_S)
+        _, jitter, ok, rung = tlinalg.jitchol_full(psi2)
+    rel_j, rel_t = abs(j32 - t64) / abs(t64), abs(t32 - t64) / abs(t64)
+    print(f"bgplvm -ELBO at the card's fitted leaves: JAX f32 {j32:.6f} (rel {rel_j:.3e}), "
+          f"port f32 {t32:.6f} (rel {rel_t:.3e}), port f64 {t64:.6f}; f32 chol(psi2) rung "
+          f"{int(rung)}, jitter {float(jitter):.3e}, ok {bool(ok)}")
+    assert np.isfinite(j32)
+    assert np.isfinite(t32)
+    assert rel_t <= 1.5 * rel_j
 
 
 def test_bgplvm_posterior_u_and_predict_match_jax(bgplvm_pair):

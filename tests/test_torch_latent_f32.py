@@ -7,8 +7,6 @@ against float64, on the CPU: the readings behind phase 11's limits
 the gradient with the X block, against the port's float64 terms. ``-s``
 prints every reading. Marked slow: the point GPLVM's float64 gradient at N =
 4096 and the IBP model's EQ_ODE2 take minutes in the JAX package."""
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,27 +25,10 @@ from gaussian_process_optimization_tpu.models import zoo as jzoo
 from gaussian_process_optimization_tpu.models.gp import GPRegression as JGP
 from gaussian_process_optimization_tpu.models.sparse import SparseGPRegression as JSparse
 from gaussian_process_optimization_tpu_torch import workload
-from test_torch_gplvm import jgplvm_packer, port_gp
+from test_torch_gplvm import jgplvm_packer, port_gp, saved_leaves, with_leaves
 
-FITTED = Path(__file__).parent / "data" / "latent_card_fitted.npz"
 pytestmark = pytest.mark.slow
-
-
-def _saved(name):
-    data = np.load(FITTED)
-    return {k[len(name) + 1:]: data[k] for k in data.files if k.startswith(name + "/")}
-
-
-def with_leaves(template, saved):
-    """``template`` with each leaf whose port path is in ``saved`` replaced."""
-    flat, treedef = jax.tree_util.tree_flatten_with_path(template)
-    out = []
-    for path, leaf in flat:
-        key = ".".join(str(getattr(e, "name", getattr(e, "idx", getattr(e, "key", ""))))
-                       for e in path)
-        out.append(jnp.asarray(saved[key], dtype=jnp.asarray(leaf).dtype) if key in saved
-                   else leaf)
-    return jax.tree_util.tree_unflatten(treedef, out)
+_saved = saved_leaves
 
 
 def _f32(m):
