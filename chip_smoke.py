@@ -140,7 +140,24 @@ Phases, each printing its own lines:
                 B4 inside the distributed Cholesky are timed beside their plain
                 versions and bounds. The launches of the sharded calls and of the
                 clustering are counted apart;
- 13. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
+ 13. examples — the example twins (``gaussian_process_optimization_tpu_torch/examples``),
+                float32 on the card with no device given, run before leg A: every
+                gallery demo unoptimized, its objective against the port's float64
+                on the CPU (limit 10x the port's own float32 gap on the CPU, floor
+                1e-6 and cap 1e-2 relative; the three objectives whose float32 the
+                JAX package's own CPU run puts past the cap are held in float64 on
+                the card and their float32 printed); ``tests/test_gallery.py``'s
+                seven optimized demos at their budgets (each ends finite and no
+                worse than it started); the
+                nine example scripts at ``tests/test_examples.py``'s arguments, each
+                held to what that test checks (the BO ones cut to one iteration,
+                ``multichip_bo`` on a 4-shard mesh, ``large_scale_sparse`` at its
+                full N = 50 000 with the SVGP cut to 50 of 300 steps) and the
+                Forrester example at N = 512, whose fit puts an example's
+                GPRegression on B1-B3 (the examples' own sizes stay under B1's gate
+                and B3's block; phase 3 checks and times B1 / B2 at that fit's
+                5 x 512 x 512 and B3 at its 10 blocks). B1-B3 launched (B4 counted);
+ 14. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -513,11 +530,12 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bound}
 
     # B3: triangular-inverse blocks: G = 80 (fit backward), 16 (posterior), 160
-    # (the MCMC surrogate's 10-lane posterior). These inputs are well
+    # (the MCMC surrogate's 10-lane posterior), 10 (the Forrester example's
+    # backward in phase 13). These inputs are well
     # conditioned; phase_tri_inv_on_main_path repeats the check on the diagonal
     # blocks of the main path's own Cholesky factor.
     errs = []
-    for g in (80, 16, 160):
+    for g in (80, 16, 160, 10):
         A = torch.randn(g, 256, 256, generator=gen, device=dev)
         L = torch.linalg.cholesky(A @ A.mT + 256 * torch.eye(256, device=dev)).contiguous()
         got = cl.tri_inv_blocks(L)
@@ -623,19 +641,41 @@ def _surrogate_shapes(dev, X, gen) -> float:
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         del got, want, G, out, ref
 
-    p10 = _rbf_rows(dev, 10, gen)
-    tag = "10x4096x4096"
-    got = ck.stationary_k_build(X, X, p10, "rbf", False)
-    want = ck.k_build_plain(X, X, p10, "rbf", False)
-    _close(f"B1 {tag} (RBF)", got, want, rtol=2e-5, atol=2e-6)
-    errs.append(_max_err(got, want))
-    del want
-    ms = _time_ms(lambda: ck.stationary_k_build(X, X, p10, "rbf", False), calls=5)
-    plain = _time_ms(lambda: ck.k_build_plain(X, X, p10, "rbf", False), calls=5)
-    bound = _bound(_nbytes(X, p10, got), got.numel() * _k_flops(X.shape[-1]))
-    print(f"# B1 stationary_k_build {tag} (RBF, the MCMC surrogate's S lanes): kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']})")
+    # B1 on the MCMC surrogate's S = 10 lanes of K(X, X) at 4096 (RBF), and on
+    # the Forrester example's fit in phase 13 (5 lanes of 512 x 512, D = 1),
+    # there with B2's parameter gradients (what a fit asks for)
+    X1 = torch.rand(1, EXAMPLES_KERNEL_N, 1, generator=gen, device=dev)
+    p5 = _rbf_rows(dev, 5, gen)
+    for Xk, p, tag, what in ((X, _rbf_rows(dev, 10, gen), "10x4096x4096",
+                              "the MCMC surrogate's S lanes"),
+                             (X1, p5, f"5x{EXAMPLES_KERNEL_N}x{EXAMPLES_KERNEL_N} D=1",
+                              "the Forrester example's fit")):
+        got = ck.stationary_k_build(Xk, Xk, p, "rbf", False)
+        want = ck.k_build_plain(Xk, Xk, p, "rbf", False)
+        _close(f"B1 {tag} (RBF)", got, want, rtol=2e-5, atol=2e-6)
+        errs.append(_max_err(got, want))
+        del want
+        ms = _time_ms(lambda: ck.stationary_k_build(Xk, Xk, p, "rbf", False), calls=5)
+        plain = _time_ms(lambda: ck.k_build_plain(Xk, Xk, p, "rbf", False), calls=5)
+        bound = _bound(_nbytes(Xk, p, got), got.numel() * _k_flops(Xk.shape[-1]))
+        print(f"# B1 stationary_k_build {tag} (RBF, {what}): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        del got
+    G = (torch.rand(5, EXAMPLES_KERNEL_N, EXAMPLES_KERNEL_N, generator=gen, device=dev)
+         - 0.5).contiguous()
+    flags = (False, False, True)  # need_dx, need_dz, need_params
+    got = ck.stationary_k_backward(X1, X1, p5, G, "rbf", False, *flags)[0]
+    want = ck.k_backward_plain(X1.double(), X1.double(), p5.double(), G.double(), "rbf",
+                               False, *flags)[0]
+    _close("B2 dparams 5x512x512 D=1", got, want, rtol=1e-4,
+           atol=1e-4 * float(want.abs().max()))
+    ms = _time_ms(lambda: ck.stationary_k_backward(X1, X1, p5, G, "rbf", False, *flags))
+    plain = _time_ms(lambda: ck.k_backward_plain(X1, X1, p5, G, "rbf", False, *flags))
+    bound = _bound(_nbytes(X1, p5, G, got), G.numel() * _k_bwd_flops(1))
+    print(f"# B2 stationary_k_backward 5x{EXAMPLES_KERNEL_N}x{EXAMPLES_KERNEL_N} D=1 RBF, "
+          f"parameter gradients (the Forrester example's fit): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); max "
+          f"|kernel - plain| {_max_err(got, want):.3e}")
     return max(errs)
 
 
@@ -3198,6 +3238,261 @@ def phase_sharded(dev):
     return sharded, clustered, errs, b4_err
 
 
+# ------------------------------------------------------------- phase 13: examples
+# tests/test_gallery.py::OPTIMIZED at its budgets
+EXAMPLES_OPTIMIZED = [
+    ("regression", "toy_rbf_1d", dict(max_iters=30)),
+    ("regression", "sparse_GP_regression_1D", dict(num_samples=40, max_iters=20)),
+    ("regression", "warped_gp_cubic_sine", dict(max_iters=20)),
+    ("classification", "toy_linear_1d_classification", {}),
+    ("dimensionality_reduction", "gplvm_simulation", dict(max_iters=30)),
+    ("non_gaussian", "student_t_approx", dict(max_iters=15)),
+    ("state_space", "state_space_example", dict(max_iters=15, n=120)),
+]
+# the card's float32 objective of an unoptimized demo against the port's
+# float64 on the CPU: 10x the port's own float32 gap on the CPU, floored at
+# 1e-6 and capped at 1e-2 of the objective, so that a wrong value fails
+# whatever the CPU's float32 reads
+EXAMPLES_GAP_FACTOR = 10.0
+EXAMPLES_REL_FLOOR = 1e-6
+EXAMPLES_REL_CAP = 1e-2
+# (module, demo, objective index): the objectives whose float32 the cap cannot
+# hold, because the JAX package's own float32 on the CPU is further than
+# EXAMPLES_REL_CAP / EXAMPLES_GAP_FACTOR from its float64
+# (tests/test_torch_gallery.py holds each to that). Each also runs on the card
+# in float64, held to the CPU's float64 at EXAMPLES_F64_RTOL; its float32
+# reading is printed unchecked (ROADMAP C16).
+EXAMPLES_F32_ILL_POSED = {
+    ("classification", "oil", 0):
+        "EPDTC: Qnn << Knn at most points in 12-D, so the cavity 1/sigma^2 - tau "
+        "loses tau; sites fall to the floor and the bound's terms cancel",
+    ("classification", "sparse_toy_linear_1d_classification_uncertain_input", 0):
+        "Kmm near singular: float32 takes a higher rung of the jitter ladder than "
+        "float64, which moves the psi2 bound",
+    ("non_gaussian", "student_t_approx", 2):
+        "TPRegression: K carries only the 1e-8 jitter, cond ~1e8",
+}
+EXAMPLES_F64_RTOL = 1e-6
+# an optimized demo ends no worse than it started, to float32's rounding
+EXAMPLES_START_SLACK = 1e-6
+EXAMPLES_SVGP_STEPS = 50      # large_scale_sparse's 300 SVGP steps, cut (depth)
+# The examples' models at their own sizes stay under B1's gate (128^2 elements)
+# except large_scale_sparse, and under B3's 256-row block all of them: the
+# Forrester example at this N puts an example's GPRegression fit on B1-B3.
+EXAMPLES_KERNEL_N = 512
+
+
+def _demo_objectives(out):
+    """The objectives in what a gallery demo returns: each model's
+    ``log_marginal_likelihood``, a returned bound, a returned dict's values."""
+    if hasattr(out, "log_marginal_likelihood"):
+        return [float(out.log_marginal_likelihood())]
+    if isinstance(out, tuple):
+        return [v for o in out for v in _demo_objectives(o)]
+    if isinstance(out, dict):
+        return [float(v) for v in out.values()]
+    return [float(out)]
+
+
+def _unoptimized(fn, **kw):
+    import inspect
+
+    params = inspect.signature(fn).parameters
+    kw.update({k: False for k in ("optimize", "plot") if k in params})
+    return fn(**kw)
+
+
+def _gallery_demos():
+    import inspect
+
+    from gaussian_process_optimization_tpu_torch.examples import gallery
+
+    return [(m.__name__.split(".")[-1], name, f) for m in gallery.MODULES
+            for name, f in inspect.getmembers(m, inspect.isfunction)
+            if not name.startswith("_") and f.__module__ == m.__name__]
+
+
+def _leg_gallery(failures):
+    """Every gallery demo unoptimized on the card (float32, no device given),
+    each objective against the port's float64 on the CPU; the demos of
+    EXAMPLES_F32_ILL_POSED also in float64 on the card."""
+    demos = _gallery_demos()
+    worst = 0.0
+    for mod, name, fn in demos:
+        card = _demo_objectives(_unoptimized(fn))
+        f64 = _demo_objectives(_unoptimized(fn, device="cpu", dtype=torch.float64))
+        f32 = _demo_objectives(_unoptimized(fn, device="cpu", dtype=torch.float32))
+        ill = [i for i in range(len(card)) if (mod, name, i) in EXAMPLES_F32_ILL_POSED]
+        card64 = _demo_objectives(_unoptimized(fn, dtype=torch.float64)) if ill else None
+        for i, (c, a, b) in enumerate(zip(card, f64, f32)):
+            tag = f"{mod}.{name}" + (f"[{i}]" if len(card) > 1 else "")
+            if i in ill:
+                err, limit = abs(card64[i] - a), EXAMPLES_F64_RTOL * abs(a)
+                print(f"# examples: {tag}: card f64 {card64[i]:.12g}, CPU f64 {a:.12g}, "
+                      f"|diff| {err:.3e} (limit {limit:.3e}); card f32 {c:.9g}, CPU f32 "
+                      f"{b:.9g}, unchecked: {EXAMPLES_F32_ILL_POSED[mod, name, i]}")
+                if not err <= limit:
+                    failures.append(f"gallery {tag}: card f64 {card64[i]} vs CPU f64 {a}")
+                continue
+            limit = min(max(EXAMPLES_GAP_FACTOR * abs(b - a), EXAMPLES_REL_FLOOR * abs(a)),
+                        EXAMPLES_REL_CAP * abs(a))
+            err = abs(c - a)
+            worst = max(worst, err / limit if limit > 0 else math.inf)
+            print(f"# examples: {tag}: card f32 {c:.9g}, CPU f64 {a:.9g}, |diff| {err:.3e} "
+                  f"(limit {limit:.3e}; CPU f32 gap {abs(b - a):.3e})")
+            if not (math.isfinite(c) and err <= limit):
+                failures.append(f"gallery {tag}: card f32 {c} vs CPU f64 {a} past {limit:.3e}")
+    return len(demos), worst
+
+
+def _leg_gallery_optimized(failures):
+    """tests/test_gallery.py::OPTIMIZED on the card: each demo's objectives end
+    finite and no worse than where they started."""
+    demos = {(mod, name): fn for mod, name, fn in _gallery_demos()}
+    for mod, name, kw in EXAMPLES_OPTIMIZED:
+        fn = demos[mod, name]
+        start = _demo_objectives(_unoptimized(fn, **{k: v for k, v in kw.items()
+                                                    if k != "max_iters"}))
+        t0 = _now()
+        end = _demo_objectives(fn(optimize=True, **kw))
+        t1 = _now()
+        print(f"# examples: optimized {mod}.{name} {kw}: objective {start} -> {end} "
+              f"({t1 - t0:.2f} s)")
+        for s, e in zip(start, end):
+            if not (math.isfinite(e) and e >= s - EXAMPLES_START_SLACK * abs(s)):
+                failures.append(f"optimized {mod}.{name}: objective {s} -> {e}")
+
+
+def _check_example(name, ok, failures, detail):
+    print(f"# examples: {name}: {detail}")
+    if not ok:
+        failures.append(f"example {name}: {detail}")
+
+
+def _leg_example_scripts(failures, seconds):
+    """The nine example twins at tests/test_examples.py's arguments, each held
+    to what the reference's test checks. The BO examples run one iteration,
+    large_scale_sparse its full N with the SVGP cut to EXAMPLES_SVGP_STEPS; plots
+    go through the 'none' backend (no drawing library on the card's machine)."""
+    import os
+    import tempfile
+
+    from gaussian_process_optimization_tpu_torch.bo import objectives
+    from gaussian_process_optimization_tpu_torch.examples import (
+        branin_bo, classification_and_latents, forrester_gp, large_scale_sparse,
+        latent_inference, latent_plots_and_clustering, mixed_design_batch, multichip_bo,
+        uncertainty_quantification)
+    from gaussian_process_optimization_tpu_torch.utils import plotting_library as pl
+
+    lo, hi = np.asarray(objectives.branin.bounds).T
+    here = os.getcwd()
+    pl.change_plotting_library("none")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+
+            def timed(name, fn):
+                t0 = _now()
+                out = fn()
+                seconds[name] = _now() - t0
+                return out
+
+            bo = timed("branin_bo", lambda: branin_bo.main(max_iter=1, plot=False))
+            _check_example("branin_bo", bo.Y.shape[0] == 6 and np.isfinite(bo.fx_opt)
+                           and np.all((bo.X >= lo) & (bo.X <= hi)), failures,
+                           f"{bo.Y.shape[0]} evaluations, best {bo.fx_opt:.5f}")
+            bo = timed("multichip_bo", lambda: multichip_bo.main(max_iter=1))
+            _check_example("multichip_bo", bo.Y.shape[0] == 6 and np.isfinite(bo.fx_opt)
+                           and np.all((bo.X >= lo) & (bo.X <= hi)), failures,
+                           f"{bo.Y.shape[0]} evaluations on a {multichip_bo.CARD_SHARDS}-shard "
+                           f"mesh, best {bo.fx_opt:.5f}")
+            X, Y = timed("mixed_design_batch", lambda: mixed_design_batch.main(
+                iterations=1, batch=2, state_file="st.npz"))
+            X2, _ = timed("mixed_design_batch resumed", lambda: mixed_design_batch.main(
+                iterations=1, batch=2, state_file="st.npz"))
+            _check_example("mixed_design_batch", X.shape[0] == 14 and X2.shape[0] >= 14
+                           and np.all(np.isfinite(Y)), failures,
+                           f"{X.shape[0]} rows, {X2.shape[0]} after the resume")
+            m = timed("forrester_gp", lambda: forrester_gp.main(n=12, plot=True,
+                                                               out="f.png"))
+            _check_example("forrester_gp", float(m.kern.lengthscale) > 0, failures,
+                           f"lengthscale {float(m.kern.lengthscale):.4f}")
+            lml_ss, lml_dense = timed("classification_and_latents",
+                                      lambda: classification_and_latents.main(plot=False))
+            _check_example("classification_and_latents",
+                           abs(lml_ss - lml_dense) < 1e-3 * max(1.0, abs(lml_dense)),
+                           failures, f"state-space LML {lml_ss:.5f}, dense {lml_dense:.5f}")
+            rmse = timed("latent_inference infer_newX",
+                         lambda: latent_inference.infer_newx_demo(n=30, maxiter=150))
+            m_mh, m_hmc, rate = timed("latent_inference MCMC",
+                                      lambda: latent_inference.mcmc_tail_demo(num_samples=800))
+            _check_example("latent_inference", rmse < 0.3 and 0.05 < rate < 0.95
+                           and abs(m_mh[0] - 1.0) < 0.5 and abs(m_hmc[0] - 1.0) < 0.5,
+                           failures, f"RMSE {rmse:.4f}, MH accept {rate:.2f}, means "
+                           f"{np.round(m_mh, 3)} / {np.round(m_hmc, 3)}")
+            _, rec, loc_err, groups = timed(
+                "latent_plots_and_clustering",
+                lambda: latent_plots_and_clustering.main(plot=True, outdir=tmp, maxiter=80))
+            _check_example("latent_plots_and_clustering",
+                           np.isfinite(rec) and np.isfinite(loc_err)
+                           and sorted(sorted(g) for g in groups) == [[0, 1], [2, 3]], failures,
+                           f"reconstruction {rec:.3f}, placement {loc_err:.3f}, groups "
+                           f"{sorted(sorted(g) for g in groups)}")
+            gp, tp, _, _ = timed("uncertainty_quantification", uncertainty_quantification.main)
+            Xs = torch.as_tensor(np.linspace(-2, 2, 5)[:, None], dtype=gp.X.dtype,
+                                 device=gp.X.device)
+            (glo, ghi), (tlo, thi) = gp.predict_quantiles(Xs), tp.predict_quantiles(Xs)
+            _check_example("uncertainty_quantification", bool(torch.all(thi - tlo > ghi - glo)),
+                           failures, "TP bands wider than the GP's at all 5 points")
+            fitted, _ = timed("large_scale_sparse", lambda: large_scale_sparse.main(
+                svgp_steps=EXAMPLES_SVGP_STEPS))
+            Xs = np.random.default_rng(1).uniform(-3, 3, size=(5, 2))
+            mu, _ = fitted.predict(torch.as_tensor(Xs, dtype=fitted.X.dtype,
+                                                   device=fitted.X.device))
+            err = float(np.abs(mu.cpu().numpy() - np.sin(Xs[:, :1] * 2) * np.cos(Xs[:, 1:])).max())
+            _check_example("large_scale_sparse", err <= SPARSE_PREDICT_LIMIT, failures,
+                           f"N=50 000, M=256, fitted bound "
+                           f"{float(fitted.log_marginal_likelihood()):.1f}, |prediction - truth| "
+                           f"{err:.4f} (limit {SPARSE_PREDICT_LIMIT:g})")
+            m = timed(f"forrester_gp n={EXAMPLES_KERNEL_N}", lambda: forrester_gp.main(
+                n=EXAMPLES_KERNEL_N, plot=False))
+            _check_example(f"forrester_gp n={EXAMPLES_KERNEL_N}",
+                           math.isfinite(float(m.log_marginal_likelihood())), failures,
+                           f"fitted LML {float(m.log_marginal_likelihood()):.3f}")
+    finally:
+        os.chdir(here)
+        pl.change_plotting_library("matplotlib")
+
+
+def phase_examples():
+    """Phase 13: the gallery and the example scripts, float32 on the card with
+    no device given. Launches are counted over the whole phase; B1-B3 must be
+    non-zero (B4 is off this path and counted too). Every leg runs; the phase
+    fails at its end if any check failed."""
+    failures = []
+    _zero_counts()
+    t0 = _now()
+    n_demos, worst = _leg_gallery(failures)
+    t1 = _now()
+    _leg_gallery_optimized(failures)
+    t2 = _now()
+    seconds = {}
+    _leg_example_scripts(failures, seconds)
+    t3 = _now()
+    launches = _read_counts()
+    print(f"# examples: phase 13 took {t3 - t0:.1f} s (gallery {n_demos} demos unoptimized "
+          f"{t1 - t0:.1f} s, worst diff / limit {worst:.3f}; optimized {t2 - t1:.1f} s; scripts "
+          f"{t3 - t2:.1f} s: {', '.join(f'{k} {v:.2f}' for k, v in seconds.items())}); "
+          f"cuts: BO examples 1 iteration, large_scale_sparse SVGP {EXAMPLES_SVGP_STEPS} of "
+          f"300 steps; launches {launches}")
+    for k in ("B1", "B2", "B3"):
+        if launches[k] <= 0:
+            failures.append(f"kernel {k} was never launched")
+    if failures:
+        raise AssertionError("examples: " + "; ".join(failures))
+    return launches
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
@@ -3222,6 +3517,7 @@ def main():
     rows["B1"]["max_abs_err"] = max(rows["B1"]["max_abs_err"], sharded_errs[0], sharded_errs[1])
     rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], *sharded_errs[2:])
     rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_sharded_err)
+    example_launches = phase_examples()
     phase_loop_protocol()
     # B1 and B2 run on the main, composite, surrogate, approximate and zoo paths,
     # B4 on the thesis path, B3 on all but the sparse leg; "launches" is the main
@@ -3251,6 +3547,7 @@ def main():
                         "launches_latent": latent_launches[key],
                         "launches_sharded": sharded_launches[key],
                         "launches_cluster": cluster_launches[key],
+                        "launches_examples": example_launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_us": r["bound_us"], "bound_by": r["bound_by"],

@@ -4,13 +4,16 @@ GPyOpt/GPyOpt/core/task/space.py:13 ``Design_space``), host numpy.
 The mixed continuous/discrete/categorical/bandit domain with the model-space vs
 objective-space duality (one-hot categorical expansion, :133), zip/unzip
 (:220-236), bounds (:263), per-variable rounding (:328), indicator constraints
-(:303), and the reference author's ``lengthscales`` (:352), the continuous value
-ranges the Gower kernel divides by.
+(:303), uniform sampling, and the reference author's additions: ``has_discrete``
+(:280), ``lengthscales`` (:352, the continuous value ranges the Gower kernel
+divides by), the zero-start shifts (:364) and the discrete grid (:473).
 
 Constraints are callables c(x_2d) -> (n,) with c(x) <= 0 feasible, or numpy
 string expressions in x (the reference exec's them, space.py:303).
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 
@@ -47,6 +50,16 @@ class DesignSpace:
             self._objective_slices.append(slice(oidx, oidx + owidth))
             oidx += owidth
 
+    def has_types(self):
+        return {t: any(v.type == t for v in self.space_expanded)
+                for t in ("continuous", "discrete", "categorical", "bandit")}
+
+    def has_continuous(self):
+        return any(v.is_continuous for v in self.space_expanded)
+
+    def has_discrete(self):
+        return any(v.is_discrete for v in self.space_expanded)
+
     def has_constraints(self):
         return len(self.constraints) > 0
 
@@ -58,6 +71,16 @@ class DesignSpace:
     def get_discrete_dims(self):
         return [self._objective_slices[i].start
                 for i, v in enumerate(self.space_expanded) if v.is_discrete]
+
+    def get_categorical_dims(self):
+        return [self._objective_slices[i].start
+                for i, v in enumerate(self.space_expanded) if v.is_categorical]
+
+    def get_continuous_space(self):
+        return [v for v in self.space_expanded if v.is_continuous]
+
+    def get_discrete_space(self):
+        return [v for v in self.space_expanded if v.is_discrete]
 
     def get_discrete_values(self):
         """Allowed values per discrete variable (space.py:460)."""
@@ -76,6 +99,22 @@ class DesignSpace:
     def lengthscales(self):
         """Continuous value ranges, the Gower kernel's normalizers (space.py:352)."""
         return [v.domain[-1] - v.domain[0] for v in self.space_expanded if v.is_continuous]
+
+    def zeroStart_shifted_bounds(self):
+        return [(0, v.domain[-1] - v.domain[0]) for v in self.space_expanded]
+
+    def _shifts(self):
+        return np.asarray([v.domain[0] for v in self.space_expanded], dtype=float)
+
+    def fit_to_zeroStart_shifted_bounds(self, X):
+        return np.asarray(X, dtype=float) - self._shifts()
+
+    def revert_from_zeroStart_shifted_bounds(self, X):
+        return np.asarray(X, dtype=float) + self._shifts()
+
+    def get_discrete_grid(self):
+        """Cartesian product of the discrete variables' values (space.py:473)."""
+        return np.asarray(list(itertools.product(*self.get_discrete_values())), dtype=float)
 
     def objective_to_model(self, x_obj):
         """One row, objective -> model coordinates (one-hot expand categoricals)."""
@@ -127,6 +166,24 @@ class DesignSpace:
             fail = np.any(np.asarray(vals, dtype=float).reshape(x.shape[0], -1) > 0, axis=1)
             ind[fail, :] = 0.0
         return ind
+
+    def sample_uniform(self, n, rng):
+        """``n`` uniform draws, variable by variable from the numpy Generator
+        ``rng``, in objective space."""
+        cols = []
+        for v in self.space_expanded:
+            if v.is_continuous:
+                cols.append(rng.uniform(v.domain[0], v.domain[-1], size=n))
+            elif v.is_bandit:
+                idx = rng.integers(0, v.domain.shape[0], size=n)
+                cols.extend(v.domain[idx, d] for d in range(v.domain.shape[1]))
+            else:
+                vals = np.asarray(v.domain, dtype=float)
+                cols.append(vals[rng.integers(0, len(vals), size=n)])
+        return np.stack(cols, axis=1)
+
+    def input_dim(self):
+        return self.objective_dimensionality
 
 
 def bounds_to_space(bounds):

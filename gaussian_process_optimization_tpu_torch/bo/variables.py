@@ -13,6 +13,10 @@ from __future__ import annotations
 import numpy as np
 
 
+class InvalidVariableNameError(Exception):
+    pass
+
+
 class InvalidConfigError(Exception):
     pass
 

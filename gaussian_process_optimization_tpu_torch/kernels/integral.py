@@ -61,6 +61,12 @@ class Integral(Kernel):
         erf = torch.special.erf
         return 0.5 * _SQPI * l * (erf((t - tprime) / l) + erf(tprime / l))
 
+    def k_ff(self, t, tprime, l=None):
+        """exp(-(t - t')^2 / l^2), the latent function's covariance; ``l`` is
+        the lengthscale unless given."""
+        l = self.lengthscale if l is None else l
+        return torch.exp(-torch.square(t - tprime) / torch.square(l))
+
     def K(self, X, X2=None):
         X = self._slice(X)
         t, l = X[..., :, None, 0], grid(self.lengthscale)
@@ -70,8 +76,7 @@ class Integral(Kernel):
 
     def Kdiag(self, X):
         t = self._slice(X)[..., 0]
-        k_ff = torch.exp(-torch.square(t - t) / torch.square(self.lengthscale[..., None]))
-        return self.variances[..., None] * k_ff
+        return self.variances[..., None] * self.k_ff(t, t, self.lengthscale[..., None])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -88,6 +88,14 @@ class Stationary(Kernel):
     def K_of_r(self, r):
         raise NotImplementedError
 
+    def dK_dr(self, r):
+        """d K_of_r / dr elementwise, by autograd (the families below that the
+        reference gives a closed form override it)."""
+        with torch.enable_grad():
+            r = r.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.K_of_r(r).sum(), r)
+        return g
+
     def input_sensitivity(self, summarize=True):
         """variance / lengthscale^2 per dimension (GPy stationary.py:270)."""
         return (self.variance / torch.square(self.lengthscale)).expand(self.input_dim)
@@ -159,6 +167,9 @@ class RBF(Stationary):
     def K_of_r2(self, r2):
         return self._lane(self.variance) * torch.exp(-0.5 * r2)
 
+    def dK_dr(self, r):
+        return -r * self.K_of_r(r)
+
 
 ExpQuad = RBF
 
@@ -171,6 +182,9 @@ class Exponential(Stationary):
 
     def K_of_r(self, r):
         return self._lane(self.variance) * torch.exp(-r)
+
+    def dK_dr(self, r):
+        return -self.K_of_r(r)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +206,9 @@ class Matern32(Stationary):
     def K_of_r(self, r):
         s3r = math.sqrt(3.0) * r
         return self._lane(self.variance) * (1.0 + s3r) * torch.exp(-s3r)
+
+    def dK_dr(self, r):
+        return -3.0 * self._lane(self.variance) * r * torch.exp(-math.sqrt(3.0) * r)
 
     def curvature0(self):
         # k(u) = v (1 + sqrt(3u)) exp(-sqrt(3u)) = v (1 - (3/2) u + O(u^{3/2}))

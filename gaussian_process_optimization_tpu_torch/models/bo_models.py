@@ -50,7 +50,26 @@ def _bucket(n: int, minimum: int = 16) -> int:
     return max(minimum, 2 ** math.ceil(math.log2(max(n, 1))))
 
 
-class GPModel:
+class BOModel:
+    """The surrogate interface of the BO loop (GPyOpt models/base.py)."""
+
+    analytical_gradient_prediction = False
+    MCMC_sampler = False
+
+    def updateModel(self, X_all, Y_all, X_new=None, Y_new=None):
+        raise NotImplementedError
+
+    def predict(self, X):
+        raise NotImplementedError
+
+    def predict_withGradients(self, X):
+        raise NotImplementedError
+
+    def get_fmin(self):
+        raise NotImplementedError
+
+
+class GPModel(BOModel):
     """Exact, padded GP surrogate (GPyOpt gpmodel.py:9)."""
 
     analytical_gradient_prediction = True

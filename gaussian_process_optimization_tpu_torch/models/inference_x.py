@@ -80,7 +80,7 @@ def infer_newX(model, Y_new, optimize=True, init="L2", maxiter=200, init_idx=Non
     else:
         raise TypeError("infer_newX takes a GPRegression (point GPLVM) or a BayesianGPLVM, "
                         f"got {type(model).__name__}")
-    Y_new = torch.as_tensor(np.asarray(Y_new, dtype=float), dtype=ref.dtype, device=ref.device)
+    Y_new = torch.as_tensor(Y_new, dtype=ref.dtype, device=ref.device)
     if Y_new.ndim == 1:
         Y_new = Y_new[:, None]
     if isinstance(model, BayesianGPLVM):

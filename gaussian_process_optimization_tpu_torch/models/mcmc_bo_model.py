@@ -29,8 +29,8 @@ import torch
 from ..config import config, resolve_device, resolve_dtype
 from ..kernels.stationary import RBF
 from ..utils.priors import GammaPrior
-from .bo_models import (_bucket, default_noise, masked_fmin, parameter_names,
-                        parameter_rows, real_Y_min)
+from .bo_models import (BOModel, _bucket, default_noise, masked_fmin,
+                        parameter_names, parameter_rows, real_Y_min)
 from .fit import Fitter
 from .gp import GPRegression
 from .hmc import hmc_draws, hmc_sample
@@ -45,7 +45,7 @@ def _synchronize(device):
         torch.cuda.synchronize(device)
 
 
-class GPModel_MCMC:
+class GPModel_MCMC(BOModel):
     """(gpmodel.py:180) The point-estimate fit is ``model``; the kept samples
     are the lanes of ``samples`` with their posteriors in ``samples_posterior``.
     ``seconds`` holds the last refit's host-clock split (fit, HMC) and

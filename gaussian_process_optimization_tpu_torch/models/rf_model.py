@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .bo_models import BOModel
+
 
 class _Tree:
     """CART regression tree, variance-reduction splits, stored as flat arrays."""
@@ -123,7 +125,7 @@ class RandomForest:
         return np.stack([t.predict(X) for t in self.trees], axis=0)  # (T, n)
 
 
-class RFModel:
+class RFModel(BOModel):
     """(rfmodel.py:8): predict -> (forest mean, std) where var = mean over trees of
     (tree prediction - mean)^2."""
 

@@ -15,14 +15,14 @@ import torch
 
 from ..config import config, resolve_device, resolve_dtype
 from ..kernels.stationary import Matern52
-from .bo_models import (_bucket, default_noise, masked_fmin, parameter_names,
-                        parameter_rows, real_Y_min)
+from .bo_models import (BOModel, _bucket, default_noise, masked_fmin,
+                        parameter_names, parameter_rows, real_Y_min)
 from .fit import Fitter
 from .parameters import bounded_noise_transform
 from .sparse import SparseGPRegression
 
 
-class SparseGPModel:
+class SparseGPModel(BOModel):
     analytical_gradient_prediction = True
 
     def __init__(self, kernel=None, noise_var=None, exact_feval=False, optimizer="lbfgs",

@@ -141,6 +141,14 @@ def _rbf_blocks(variance, lengthscale, order, like):
     return F * (d[None, :] / d[:, None]), P / (d[:, None] * d[None, :]), H * d[None, :]
 
 
+def _expm(M):
+    """``matrix_exp`` taken in float64 and returned in ``M``'s dtype: Q = P0 -
+    A P0 A^T cancels where the step is short, and torch's float32 exponential
+    (its own series, not the reference's Pade) alone put 5x the JAX package's
+    float32 error into the LML."""
+    return torch.linalg.matrix_exp(M.to(torch.float64)).to(M.dtype)
+
+
 def _block_diag(blocks):
     """Block-diagonal stacking over the last two axes (leading axes shared)."""
     D = sum(b.shape[-1] for b in blocks)
@@ -339,12 +347,12 @@ class StateSpaceGP:
         if kind == "white":
             return F.new_zeros(n, d, d), P0.expand(n, d, d)
         if kind == "stationary":
-            A = torch.linalg.matrix_exp(F * dts[:, None, None])
+            A = _expm(F * dts[:, None, None])
             Q = P0 - A @ P0 @ A.mT
             return A, 0.5 * (Q + Q.mT)
         # Van Loan: Q(dt) = Phi_12 A^T, Phi = expm([[F, Qc], [0, -F^T]] dt)
         M = torch.cat([torch.cat([F, Qc], dim=1), torch.cat([torch.zeros_like(F), -F.mT], dim=1)])
-        Phi = torch.linalg.matrix_exp(M * dts[:, None, None])
+        Phi = _expm(M * dts[:, None, None])
         A = Phi[:, :d, :d]
         Q = Phi[:, :d, d:] @ A.mT
         return A, 0.5 * (Q + Q.mT)

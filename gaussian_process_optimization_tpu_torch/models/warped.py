@@ -178,6 +178,23 @@ class WarpedGP:
         lpd = gp_z.log_predictive_density(x_test, fy, posterior=post)
         return lpd + torch.log(self.warp.fgrad_y(y[:, 0]))[:, None]
 
+    def predictive_gradients(self, Xnew):
+        """(dmu (M, D, 1), dvar (M, D)) of the un-warped prediction (GPy gp.py:407
+        shapes)."""
+        return _row_gradients(self.predict, Xnew)
+
+
+def _row_gradients(predict, Xnew):
+    """d mean and d variance of ``predict(X)`` in each row of ``X``: each row
+    enters only its own prediction, so one backward of a sum gives every row's
+    gradient."""
+    with torch.enable_grad():
+        X = Xnew.detach().requires_grad_(True)
+        mu, var = predict(X)
+        (dm,) = torch.autograd.grad(mu[:, 0].sum(), X, retain_graph=True)
+        (dv,) = torch.autograd.grad(var[:, 0].sum(), X)
+    return dm[:, :, None], dv
+
 
 @dataclasses.dataclass(frozen=True)
 class KumarWarp:
@@ -244,3 +261,13 @@ class InputWarpedGP:
         gp_w, post = self.posterior_cache() if posterior is None else posterior
         return gp_w.predict(self.warp.f(Xnew), include_likelihood=include_likelihood,
                             posterior=post)
+
+    def predictive_gradients(self, Xnew):
+        """(dmu (M, D, 1), dvar (M, D)) through the warp, the variance with the
+        noise (GPy gp.py:407 shapes)."""
+        gp_w, post = self.posterior_cache()
+
+        def predict(X):
+            mu, var = gp_w._raw_predict(self.warp.f(X), posterior=post)
+            return mu, var + gp_w.likelihood_variance
+        return _row_gradients(predict, Xnew)

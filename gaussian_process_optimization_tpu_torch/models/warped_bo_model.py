@@ -18,12 +18,12 @@ import torch
 
 from ..config import config, resolve_device, resolve_dtype
 from ..kernels.stationary import Matern52
-from .bo_models import _bucket, default_noise
+from .bo_models import BOModel, _bucket, default_noise
 from .fit import Fitter
 from .warped import InputWarpedGP, WarpedGP
 
 
-class _WarpedBase:
+class _WarpedBase(BOModel):
     analytical_gradient_prediction = False
 
     def __init__(self, kernel=None, noise_var=None, exact_feval=False, optimizer="lbfgs",

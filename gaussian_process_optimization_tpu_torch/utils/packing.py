@@ -86,3 +86,9 @@ class Packer:
             parts.append(t.random_restart(z[..., idx:idx + size]))
             idx += size
         return torch.cat(parts, dim=-1)
+
+    def map_constrained(self, fn, params: Any) -> list:
+        """``[fn(leaf, is_fixed) for each leaf of params]``, in leaf order (for
+        priors)."""
+        leaves = [t for _, t in named_leaves(params)]
+        return [fn(leaf, fx) for leaf, fx in zip(leaves, self._fixed)]

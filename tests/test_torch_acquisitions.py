@@ -20,6 +20,7 @@ from gaussian_process_optimization_tpu_torch.bo.objective import SingleObjective
 from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
 from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
 DOMAIN = bounds_to_space(objectives.branin.bounds)

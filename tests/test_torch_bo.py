@@ -37,6 +37,7 @@ from gaussian_process_optimization_tpu_torch.models.fit import Fitter
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.parameters import (
     bounded_noise_transform, make_packer)
+from torch_threads import one_torch_thread  # noqa: F401
 
 CONT, DISC, RANGES = (0, 1, 2, 3), (4, 5), [4.0] * 4
 GOWER = {"cont_dims": CONT, "disc_dims": DISC, "gpy_compat": True}

@@ -32,6 +32,7 @@ from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOpti
 from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
 from gaussian_process_optimization_tpu_torch.bo.variables import InvalidConfigError
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 DOMAIN = bounds_to_space(objectives.branin.bounds)
 

@@ -14,6 +14,7 @@ from gaussian_process_optimization_tpu.ops import pallas_linalg as pli
 from gaussian_process_optimization_tpu_torch.config import config as tconfig
 from gaussian_process_optimization_tpu_torch.ops import cuda_linalg
 from gaussian_process_optimization_tpu_torch.ops import linalg as tlinalg
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

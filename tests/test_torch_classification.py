@@ -19,6 +19,7 @@ from gaussian_process_optimization_tpu_torch.kernels.stationary import RBF
 from gaussian_process_optimization_tpu_torch.models import classification as tc
 from gaussian_process_optimization_tpu_torch.models.gplvm import rbf_psi_stats_n as tpsi
 from gaussian_process_optimization_tpu_torch.utils.classification import conf_matrix
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 20
 _R = np.random.default_rng(1)

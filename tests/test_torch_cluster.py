@@ -11,20 +11,10 @@ import torch
 from gaussian_process_optimization_tpu.utils import cluster as jc
 from gaussian_process_optimization_tpu_torch.utils import cluster as tc
 from test_cluster import _two_groups
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = {"same_shape": ([0, 1], True), "cross_shape": ([0, 2], True),
          "no_offset": ([0, 1], False)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tests run many small torch ops: under the suite's parallel
-    workers torch's intra-op threads only contend (8x slower on a loaded
-    host), so the module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

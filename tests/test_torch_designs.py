@@ -19,6 +19,7 @@ from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
 from gaussian_process_optimization_tpu_torch.bo.variables import InvalidConfigError
 from gaussian_process_optimization_tpu_torch.ops.cmaes import cma_minimize
 from gaussian_process_optimization_tpu_torch.ops.direct import direct_minimize
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPACES = {
     "continuous": [{"name": "a", "type": "continuous", "domain": (-5.0, 10.0)},

@@ -44,6 +44,7 @@ from gaussian_process_optimization_tpu_torch.models.warped_bo_model import (Inpu
                                                                             WarpedGPModel)
 from gaussian_process_optimization_tpu_torch.parallel import sharded
 from gaussian_process_optimization_tpu_torch.utils import cluster
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _data():

@@ -24,6 +24,7 @@ from gaussian_process_optimization_tpu_torch.bo.mcmc_sampler import (
 from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
 from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
+from torch_threads import one_torch_thread  # noqa: F401
 
 F64 = jnp.float64
 

@@ -14,6 +14,7 @@ from gaussian_process_optimization_tpu.models import ep as jep
 from gaussian_process_optimization_tpu.models import likelihoods as jl
 from gaussian_process_optimization_tpu_torch.models import ep as tep
 from gaussian_process_optimization_tpu_torch.models import likelihoods as tl
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, M = 18, 6
 _R = np.random.default_rng(0)

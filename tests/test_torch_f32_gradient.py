@@ -29,6 +29,7 @@ from gaussian_process_optimization_tpu.models.parameters import make_packer as j
 from gaussian_process_optimization_tpu_torch import convert, workload
 from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+from torch_threads import one_torch_thread  # noqa: F401
 
 FITTED = {
     0: (1.1860471489195303, [1.226745941292863, 304.5739057627313, 166.30057109035968,

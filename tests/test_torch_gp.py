@@ -19,6 +19,7 @@ from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from gaussian_process_optimization_tpu_torch.utils import transforms as ttr
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _leaves(jm):

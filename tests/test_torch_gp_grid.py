@@ -15,6 +15,7 @@ from gaussian_process_optimization_tpu_torch.kernels import RBF, GridRBF, Matern
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.gp_grid import GPGridRegression
 from test_torch_kernel_zoo import _close, jax_leaves, port_grads, spec_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

@@ -37,6 +37,7 @@ from gaussian_process_optimization_tpu_torch.ops import linalg as tlinalg
 from gaussian_process_optimization_tpu_torch.utils import priors as tpriors
 from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves
 from test_torch_kernel_zoo import jax_leaves, spec_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-10  # float64 parity of one forward or gradient
 _R = np.random.default_rng(0)

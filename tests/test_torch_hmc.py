@@ -22,6 +22,7 @@ from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from gaussian_process_optimization_tpu_torch.utils.priors import GammaPrior
+from torch_threads import one_torch_thread  # noqa: F401
 
 MU = np.array([1.0, -2.0])
 PREC = np.array([[2.0, 0.3], [0.3, 1.0]])

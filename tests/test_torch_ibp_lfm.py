@@ -15,6 +15,7 @@ from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves
 from test_torch_gplvm import _np, _t, jax_leaves, port_latent, value_and_grad_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 _T = np.linspace(0.0, 4.0, 12)
 X = np.concatenate([np.column_stack([_T, np.full_like(_T, d)]) for d in range(3)])

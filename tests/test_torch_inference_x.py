@@ -14,6 +14,7 @@ from gaussian_process_optimization_tpu.models import inference_x as jix
 from gaussian_process_optimization_tpu_torch.models import gplvm as tg
 from gaussian_process_optimization_tpu_torch.models import inference_x as tix
 from test_torch_gplvm import Y_OIL, port_gp, port_latent
+from torch_threads import one_torch_thread  # noqa: F401
 
 Y_NEW = Y_OIL[::4] + 0.1 * np.random.default_rng(11).standard_normal((8, 5))
 Y_NAN = Y_NEW.copy()

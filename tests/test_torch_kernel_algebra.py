@@ -20,6 +20,7 @@ from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.parameters import leaf_names, make_packer
 from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves, replace_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
 LS = np.array([0.7, 1.4, 0.9, 1.1])

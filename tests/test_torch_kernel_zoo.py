@@ -26,6 +26,7 @@ from gaussian_process_optimization_tpu_torch.models.parameters import DATA_NAMES
 from gaussian_process_optimization_tpu_torch.utils.tree import (leaf_name, named_leaves,
                                                                 replace_leaves)
 from test_kernel_zoo_harness import RECIPES
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-8
 LANE_RTOL = 1e-12

@@ -22,6 +22,7 @@ from gaussian_process_optimization_tpu_torch.models import fit as tfit
 from gaussian_process_optimization_tpu_torch.models import laplace as tlap
 from gaussian_process_optimization_tpu_torch.models import likelihoods as tl
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _data(kind, n=24, seed=0):

@@ -26,6 +26,7 @@ from gaussian_process_optimization_tpu.models.gp import GPRegression as JGP
 from gaussian_process_optimization_tpu.models.sparse import SparseGPRegression as JSparse
 from gaussian_process_optimization_tpu_torch import workload
 from test_torch_gplvm import jgplvm_packer, port_gp, saved_leaves, with_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.slow
 _saved = saved_leaves

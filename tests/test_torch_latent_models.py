@@ -25,6 +25,7 @@ from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves
 from test_torch_gplvm import RTOL, Y_OIL, _np, _t, jax_leaves, port_latent, value_and_grad_both
+from torch_threads import one_torch_thread  # noqa: F401
 
 YS = workload.simulate_sincos(N=30)
 _R = np.random.default_rng(12)

@@ -17,6 +17,7 @@ import gaussian_process_optimization_tpu.kernels as jk
 from gaussian_process_optimization_tpu.ops import special as jspecial
 from gaussian_process_optimization_tpu_torch.ops import special
 from test_torch_kernel_zoo import _close, check_kernel, check_lanes, port_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _points(rng, n=200):

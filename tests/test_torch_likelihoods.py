@@ -11,6 +11,7 @@ import torch
 
 from gaussian_process_optimization_tpu.models import likelihoods as jl
 from gaussian_process_optimization_tpu_torch.models import likelihoods as tl
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 7
 _R = np.random.default_rng(0)

@@ -25,6 +25,7 @@ from gaussian_process_optimization_tpu_torch.bo.evaluators import LocalPenalizat
 from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
 from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace
 from gaussian_process_optimization_tpu_torch.models.mcmc_bo_model import GPModel_MCMC
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = dict(n_samples=4, n_burnin=4, subsample_interval=2, step_size=0.05, leapfrog_steps=3)
 XS = np.linspace(0.0, 1.0, 7)[:, None]

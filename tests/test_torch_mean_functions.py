@@ -25,6 +25,7 @@ from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from gaussian_process_optimization_tpu_torch.ops import linalg as tlinalg
 from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves, replace_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
 D = 3

@@ -22,6 +22,7 @@ from gaussian_process_optimization_tpu_torch.models.parameters import make_packe
 from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves
 from test_torch_gplvm import (RTOL, Y_OIL, _np, _t, jax_leaves, port_latent,
                               value_and_grad_both)
+from torch_threads import one_torch_thread  # noqa: F401
 
 _R = np.random.default_rng(21)
 X = _R.uniform(-2, 2, (40, 2))

@@ -21,6 +21,7 @@ from gaussian_process_optimization_tpu_torch.models import multioutput as tmo
 from gaussian_process_optimization_tpu_torch.models.fit import Fitter, make_objective
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from test_torch_kernel_zoo import _close, jax_leaves, spec_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

@@ -33,19 +33,10 @@ from gaussian_process_optimization_tpu_torch.models.sparse import SparseGPRegres
 from gaussian_process_optimization_tpu_torch.utils import plotting as tplotting
 from gaussian_process_optimization_tpu_torch.utils import plotting_library as tpl
 from gaussian_process_optimization_tpu_torch.utils.profiling import PhaseTimer, trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tests run many small torch ops: under the suite's parallel
-    workers torch's intra-op threads only contend (8x slower on a loaded
-    host), so the module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 CPU = dict(device="cpu")
 

@@ -32,6 +32,7 @@ from gaussian_process_optimization_tpu_torch.models.classification import GPClas
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.tp import TPRegression
 from gaussian_process_optimization_tpu_torch.utils import serialization as ser
+from torch_threads import one_torch_thread  # noqa: F401
 
 DOMAIN = bounds_to_space(objectives.branin.bounds)
 CONSTRAINTS = [{"name": "c", "constraint": "x[:, 0] + x[:, 1] - 14.0"}]

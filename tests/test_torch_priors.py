@@ -23,6 +23,7 @@ from gaussian_process_optimization_tpu_torch.models.parameters import (
     bounded_noise_transform, make_packer)
 from gaussian_process_optimization_tpu_torch.utils import priors as tpr
 from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 PRIORS = {
     "GaussianPrior": dict(mu=0.4, sigma=1.3),

@@ -11,6 +11,7 @@ from gaussian_process_optimization_tpu.models import rf_model as jrf
 from gaussian_process_optimization_tpu.utils import native
 from gaussian_process_optimization_tpu_torch.bo import BayesianOptimization
 from gaussian_process_optimization_tpu_torch.models import rf_model as trf
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -36,19 +36,9 @@ from gaussian_process_optimization_tpu_torch.models.svgp import SVGP as TSVGP
 from gaussian_process_optimization_tpu_torch.models.svgp import make_svgp_train_step
 from gaussian_process_optimization_tpu_torch.ops import lbfgs as tlbfgs
 from gaussian_process_optimization_tpu_torch.parallel import sharded as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-9
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """These tests run many small torch ops: under the suite's parallel
-    workers torch's intra-op threads only contend (8x slower on a loaded
-    host), so the module runs on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

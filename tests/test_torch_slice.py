@@ -20,6 +20,7 @@ from gaussian_process_optimization_tpu.ops import lbfgs as jlbfgs
 from gaussian_process_optimization_tpu_torch import workload
 from gaussian_process_optimization_tpu_torch.models.fit import Fitter
 from gaussian_process_optimization_tpu_torch.ops import lbfgs
+from torch_threads import one_torch_thread  # noqa: F401
 
 PORT = Path(__file__).resolve().parent.parent / "gaussian_process_optimization_tpu_torch"
 
@@ -221,3 +222,14 @@ def test_scan_covers_the_latent_modules():
     assert {"models/gplvm.py", "models/inference_x.py", "models/mrd.py", "models/ss_gplvm.py",
             "models/lvmogp.py", "models/bgplvm_svi.py", "models/ibp_lfm.py", "models/zoo.py",
             "utils/priors.py", "ops/linalg.py"} <= scanned
+
+
+def test_scan_covers_the_examples():
+    """The example scripts and the gallery are in the no-jax scan (it walks
+    the package): each of the reference's example files has its twin there."""
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    ref = PORT.parent / "examples"
+    want = {f"examples/{p.name}" for p in ref.glob("*.py")}
+    want |= {f"examples/gallery/{p.name}" for p in (ref / "gallery").glob("*.py")}
+    assert len(want) == 15
+    assert want <= scanned

@@ -21,6 +21,7 @@ from gaussian_process_optimization_tpu_torch.models.parameters import make_packe
 from gaussian_process_optimization_tpu_torch.models.sparse import SparseGPRegression, kmm_init
 from gaussian_process_optimization_tpu_torch.models.sparse_bo_model import SparseGPModel
 from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _data(n=26, d=2, p=1, seed=0):

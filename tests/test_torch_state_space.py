@@ -16,6 +16,7 @@ from gaussian_process_optimization_tpu_torch.kernels import (Bias, Matern32, Mat
 from gaussian_process_optimization_tpu_torch.models import state_space as tss
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from test_torch_kernel_zoo import _close, jax_leaves, port_grads
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

@@ -21,6 +21,7 @@ from gaussian_process_optimization_tpu.config import config as jconfig
 from gaussian_process_optimization_tpu.ops import pallas_kernels as pk
 from gaussian_process_optimization_tpu_torch.config import config as tconfig
 from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAMILIES = [("rbf", "RBF"), ("exponential", "Exponential"), ("ou", "OU"),
             ("matern32", "Matern32"), ("matern52", "Matern52"), ("cosine", "Cosine"),

@@ -23,6 +23,7 @@ from gaussian_process_optimization_tpu_torch.models import svgp as tsvgp
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from gaussian_process_optimization_tpu_torch.ops import choleskies as tchol
 from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+from torch_threads import one_torch_thread  # noqa: F401
 
 _R = np.random.default_rng(0)
 X = _R.uniform(-3, 3, (60, 2))

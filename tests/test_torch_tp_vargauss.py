@@ -22,6 +22,7 @@ from gaussian_process_optimization_tpu_torch.models import likelihoods as tl
 from gaussian_process_optimization_tpu_torch.models import var_gauss as tvg
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
 from gaussian_process_optimization_tpu_torch.models.tp import TPRegression
+from torch_threads import one_torch_thread  # noqa: F401
 
 _R = np.random.default_rng(2)
 X = _R.uniform(-2, 2, (22, 2))

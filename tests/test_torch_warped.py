@@ -27,6 +27,7 @@ from gaussian_process_optimization_tpu_torch.models import warped_bo_model as tw
 from gaussian_process_optimization_tpu_torch.models.fit import make_objective
 from gaussian_process_optimization_tpu_torch.models.gp import GPRegression
 from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

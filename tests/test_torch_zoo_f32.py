@@ -21,6 +21,7 @@ from gaussian_process_optimization_tpu_torch.kernels.base import Kernel
 from gaussian_process_optimization_tpu_torch.utils.tree import (named_leaves, replace_leaves,
                                                                 tree_map)
 from test_torch_kernel_zoo import jax_leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 64
 CASES = [name for name, _, _ in workload.zoo_cases(n=8, device="cpu")]
