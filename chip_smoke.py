@@ -9,10 +9,13 @@ Phases, each printing its own lines:
   1. device   — refuses to run without CUDA; prints the card's name and power limit;
                 checks that the entry points build on the card when no device is
                 given;
-  2. build    — compiles the CUDA kernels from ``csrc/`` (nvcc, sm_90a, one process
-                per source) and times it;
+  2. build    — builds the native design engine (g++, utils/native.py) and holds its
+                properties on this host, then compiles the CUDA kernels from
+                ``csrc/`` (nvcc, sm_90a, one process per source) and times it;
   3. kernels  — each kernel against its plain PyTorch version at its path's
-                shapes (B1's K(X, X) also bitwise equal to its transpose; what the
+                shapes (B1's K(X, X) also bitwise equal to its transpose, and
+                its mean signed error against a float64 K printed beside the
+                plain version's; what the
                 model calls, ``stationary_K`` forward and backward, timed beside the
                 bare kernels and the symmetrization pass it no longer runs; B2's dZ
                 pass timed at the sweep shape), with its time, the plain version's, the one PyTorch call
@@ -157,6 +160,12 @@ Phases, each printing its own lines:
                 GPRegression on B1-B3 (the examples' own sizes stay under B1's gate
                 and B3's block; phase 3 checks and times B1 / B2 at that fit's
                 5 x 512 x 512 and B3 at its 10 blocks). B1-B3 launched (B4 counted);
+     Phases 9, 10 and 11 also print, at the Bernoulli Laplace leg's fitted
+     point, at leg 1's ICM fitted point and at the Bayesian GPLVM's stored
+     fitted leaves (tests/data/latent_card_fitted.npz), the float32 objective
+     against float64 with each stage (K build, ladder Cholesky, triangular
+     solves) and each pair of them on the host's CPU, with the port's blocked
+     Cholesky, and on the CPU entirely (prof_stages.py; ROADMAP C10, C11, C13);
  14. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -366,8 +375,38 @@ def phase_default_device():
         raise AssertionError(f"an entry point built off the card: {devices}")
 
 
+def _native_engine():
+    """The host design engine (utils/native.py): built and loaded here, and its
+    properties held on this host: one point per stratum, maximin no worse than
+    a single random LHS, the discrete levels represented, Sobol equal to
+    scipy's unscrambled sequence."""
+    from scipy.stats import qmc
+
+    from gaussian_process_optimization_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native design engine did not build (g++) or load")
+    seconds = time.perf_counter() - t0
+    X = native.maximin_lhs(25, 3, 30, 123)
+    strata = all(len(set(np.floor(X[:, j] * 25).astype(int).tolist())) == 25 for j in range(3))
+    ordered = native.min_pairwise_dist(X) >= native.min_pairwise_dist(
+        native.maximin_lhs(25, 3, 1, 7)) * 0.8
+    H, ok = native.discrete_lhs(20, [4, 3], 30, 10, 0.8, 99)
+    levels = ok and all(np.bincount(np.floor(H[:, j] * L).astype(int), minlength=L).min()
+                        >= max(np.floor(0.8 * 20 / L), 1) for j, L in enumerate([4, 3]))
+    sobol = np.array_equal(native.sobol_points(256, 8), qmc.Sobol(8, scramble=False).random(256))
+    print(f"# build: native design engine {native.library_path().relative_to(ROOT)} in "
+          f"{seconds:.2f} s; one point per stratum {strata}, maximin ordered {ordered}, "
+          f"levels represented {levels}, Sobol equal to scipy's {sobol}")
+    if not (strata and ordered and levels and sobol):
+        raise AssertionError("the native design engine fails its properties")
+
+
 def phase_build():
     from gaussian_process_optimization_tpu_torch.ops import _build
+
+    _native_engine()
 
     t0 = time.perf_counter()
     path = _build.build()
@@ -407,6 +446,22 @@ def _matern_rows(dev, lanes, gen):
     return torch.cat([var, torch.zeros_like(var), ls], dim=1).contiguous()
 
 
+def _b1_bias(X, p, got, want):
+    """B1's and the plain version's mean signed and mean absolute error of K
+    (B, N, N) against a float64 K on the card, over each lane's variance: a
+    reading (ROADMAP C9: at a fitted point with cond(Ky) ~ 1e8 the float32 LML
+    feels the bias of K's entries; prof_b1_bias.py takes it apart)."""
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+
+    K64 = ck.k_build_plain(X.double(), X.double(), p.double(), "matern52", True)
+    var = p[:, 0].double().reshape(-1, 1, 1)
+    (s, a), (sp, ap) = [(float(e.mean()), float(e.abs().mean()))
+                        for e in ((got.double() - K64) / var, (want.double() - K64) / var)]
+    del K64
+    print(f"# B1 K - K64 over the variance: kernel mean {s:+.3e}, mean |.| {a:.3e}; plain "
+          f"mean {sp:+.3e}, mean |.| {ap:.3e} (kernel mean / plain mean {s / sp:+.2f}; C9)")
+
+
 def phase_kernels(dev, n: int = 4096, m: int = 1000):
     from gaussian_process_optimization_tpu_torch.config import config
     from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
@@ -433,6 +488,7 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
             if not torch.equal(got, got.mT):
                 raise AssertionError("B1: K(X, X) is not bitwise symmetric")
             print(f"# B1 {tag}: K(X, X) equals its transpose bit for bit")
+            _b1_bias(X, p, got, want)
         ms = _time_ms(lambda: ck.stationary_k_build(X, Z, p, "matern52", True))
         plain = _time_ms(lambda: ck.k_build_plain(X, Z, p, "matern52", True))
         inputs = (X, p) if Z is X else (X, Z, p)  # K(X, X) reads X once
@@ -1241,9 +1297,10 @@ SPARSE_PREDICT_LIMIT = 0.05   # |prediction - truth| at 5 points after the fit
 # 5.6e-4, N = 4096) has cond ~8e7, past float32's 1 / eps, and its -LML (~ -8e2)
 # is a small difference of terms ~1e4: the sound readings are 9.50e-3 through
 # B1 / B2, 3.12e-3 through the plain K, 2.59e-3 on the CPU, and the control
-# 2.73e-2, so its limit sits at 2e-2. input_warped_GP reads 6.71e-4, 6.78e-4
-# and 1.56e-5, its control 1.25e-1: the limit stays 1e-3. (NVIDIA H100 80GB
-# HBM3, 700 W; the readings this script prints, PERF.md section 6.)
+# 2.73e-2, so its limit sits at 2e-2 (B1's excess is its bias, ROADMAP C9).
+# input_warped_GP reads 6.71e-4, 6.78e-4 and 1.56e-5, its control 1.25e-1: the
+# limit stays 1e-3. (NVIDIA H100 80GB HBM3, 700 W; the readings this script
+# prints, PERF.md section 6.)
 WARPED_LML_LIMIT = {"warpedGP": 2e-2, "input_warped_GP": 1e-3}
 WARPED_CONTROL_SHIFT = 1e-2
 
@@ -1571,6 +1628,21 @@ def _gate_launches(leg, launches, keys=("B1", "B2")):
             raise AssertionError(f"{leg}: kernel {k} was never launched")
 
 
+def _stage_swaps(name, measure, measure_cpu, keys):
+    """The float32 readings of ``measure`` with one stage at a time on the
+    host's CPU in float32 (K build, ladder Cholesky, triangular solves;
+    ``prof_stages``), and of ``measure_cpu``, the model on the CPU entirely;
+    each with the rungs its ladder settled on (ROADMAP C10, C11, C13)."""
+    from gaussian_process_optimization_tpu_torch import prof_stages
+
+    t0 = _now()
+    rows = prof_stages.readings(measure) + prof_stages.readings(
+        measure_cpu, (("CPU entirely", ()),))
+    print(f"# {name}, stage swaps ({_now() - t0:.1f} s): "
+          f"{prof_stages.format_readings(rows, keys)}")
+    return rows
+
+
 def _leg_svgp():
     """BASELINE.md configuration 4's SVGP leg (examples/large_scale_sparse.py:
     38-41): N = 50 000, D = 2, RBF, M = 256, noise 0.05, 300 Adam steps at batch
@@ -1731,7 +1803,7 @@ def _leg_epdtc(X, labels):
     return launches
 
 
-def _fit_leg(name, model, extra=""):
+def _fit_leg(name, model, extra="", stage_swaps=False):
     """1 restart x 30 steps through models/fit.fit: the -LML falls and is
     finite; the float32 -LML against float64 at the fitted point printed, and
     float32 through the plain K (no B1 / B2), and the fitted leaves, exact in
@@ -1764,6 +1836,14 @@ def _fit_leg(name, model, extra=""):
           f"{rel:.2e}), f32 through the plain K {plain:.4f} (rel {rel_plain:.2e})"
           f"{extra(fitted) if extra else ''}; launches {launches}; fitted leaves "
           f"{json.dumps(leaves)}")
+    if stage_swaps:
+        def rel(m):
+            with torch.no_grad():
+                return {"rel": abs(-float(m.log_marginal_likelihood()) - after64) / abs(after64)}
+
+        _stage_swaps(f"approximate, {name.split(' (')[0]}, -LML f32 vs f64 at the fitted point",
+                     lambda: rel(fitted), lambda: rel(tree_map(lambda t: t.cpu(), fitted)),
+                     ("rel",))
     if not (math.isfinite(after) and after < before):
         raise AssertionError(f"{name}: the -LML did not fall, or is not finite")
     _gate_launches(name, launches)
@@ -1792,7 +1872,7 @@ def _leg_laplace(X, labels, outliers):
         with torch.no_grad():
             start = int(model.inference().iterations)
         out.append(_fit_leg(f"{name} (Newton steps at the start {start})", model,
-                            _newton_steps))
+                            _newton_steps, stage_swaps=lik is None))
     return {k: sum(d[k] for d in out) for k in out[0]}
 
 
@@ -2074,7 +2154,39 @@ def _leg_icm(n, restarts, steps, where, failures):
     _gate_launches("zoo leg 1 (ICM)", launches, ("B1", "B2", "B3"))
     _check_predictions("zoo leg 1 (ICM)", preds, failures)
     _lml_and_terms("leg 1 ICM", fitted, ICM_LML_LIMIT, ICM_GRAD_LIMIT, failures)
+    _icm_stage_swaps(fitted)
     return launches, fitted, Xs
+
+
+def _icm_stage_swaps(fitted):
+    """C11: the -LML (at the f32 ladder's jitter) and the gradient error of its
+    terms at the fitted point, with one stage at a time on the host."""
+    import dataclasses
+
+    from gaussian_process_optimization_tpu_torch.models.fit import make_objective
+    from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    f64m = _f64(fitted)
+    ld64, q64 = _neg_lml_grad_terms(f64m)
+    terms = torch.maximum(ld64.abs(), q64.abs())
+
+    def measure(m):
+        packer = make_packer(m)
+        with torch.no_grad():
+            jitter = float(m.inference().jitter)
+            f32 = float(make_objective(packer)(packer.pack(m)[None], m)[0])
+        same = dataclasses.replace(f64m, likelihood_variance=f64m.likelihood_variance + jitter)
+        packer64 = make_packer(same)
+        with torch.no_grad():
+            f64 = float(make_objective(packer64)(packer64.pack(same)[None], same)[0])
+        ld32, q32 = _neg_lml_grad_terms(m)
+        grad = float((((ld32 + q32).to(ld64.device) - (ld64 + q64)).abs() / terms).max())
+        return {"lml": abs(f32 - f64) / abs(f64), "grad": grad}
+
+    _stage_swaps("zoo, leg 1 ICM at the fitted point (-LML rel at the f32 ladder's jitter, "
+                 "gradient of its terms)", lambda: measure(fitted),
+                 lambda: measure(tree_map(lambda t: t.cpu(), fitted)), ("lml", "grad"))
 
 
 def _leg_co2(n, restarts, steps, where, failures):
@@ -2554,6 +2666,7 @@ def _leg_bgplvm(where, failures, steps):
           f"{f64 < s64}), f32 {f32:.6f} (rel {rel:.3e}, the JAX package's own float32 there "
           f"{LATENT_JAX_F32['bgplvm_fitted']:.3e}: rounding, C13); ARD relevance 1/l^2 "
           f"{(1 / fitted.kern.lengthscale ** 2).tolist()}")
+    _bgplvm_stage_swaps(model)
     if not start_rel <= start_limit:
         failures.append(f"Bayesian GPLVM: -ELBO f32 vs f64 at the start rel {start_rel:.3e} > "
                         f"{start_limit:g}")
@@ -2565,6 +2678,34 @@ def _leg_bgplvm(where, failures, steps):
         failures.append("Bayesian GPLVM: non-finite prediction or q(x*)")
     return launches, fitted, {"fit": t1 - t0, "predict": t2 - t1, "infer": t3 - t2,
                               "peak_GiB": peak}
+
+
+STORED_FITTED = ROOT / "tests" / "data" / "latent_card_fitted.npz"
+
+
+def _bgplvm_stage_swaps(template):
+    """C13: the -ELBO f32 against f64 at the stored fitted leaves of the
+    Bayesian GPLVM (STORED_FITTED, a card run's phase 11), with one stage at a
+    time on the host."""
+    import numpy as np
+
+    from gaussian_process_optimization_tpu_torch.utils.tree import (named_leaves,
+                                                                    replace_leaves, tree_map)
+
+    data = np.load(STORED_FITTED)
+    saved = {k[len("bgplvm/"):]: data[k] for k in data.files if k.startswith("bgplvm/")}
+    m = replace_leaves(template, [
+        torch.as_tensor(saved[path], dtype=t.dtype, device=t.device) if path in saved else t
+        for path, t in named_leaves(template)])
+    with torch.no_grad():
+        f64 = -float(_f64(m).elbo())
+
+    def rel(model):
+        with torch.no_grad():
+            return {"rel": abs(-float(model.elbo()) - f64) / abs(f64)}
+
+    _stage_swaps("latent, leg 2 Bayesian GPLVM at the stored fitted leaves, -ELBO f32 vs f64",
+                 lambda: rel(m), lambda: rel(tree_map(lambda t: t.cpu(), m)), ("rel",))
 
 
 def _leg_models(where, failures, n, steps):

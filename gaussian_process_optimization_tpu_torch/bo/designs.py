@@ -7,9 +7,11 @@ latin_mixed_design.py:9 — stratified discrete levels with a representation che
 (sobol_design.py:8), grid (grid_design.py:8 with iroot), plus hammersley (used by the
 reference application via chaospy, run.py generate_experimental_design:1007).
 
-All host numpy and scipy.stats.qmc, in the arithmetic and the random-stream order of
-the reference's numpy branch (the reference also has a native C++ engine for the
-maximin searches and the Sobol points; this package has none).
+All host code. The maximin searches and the Sobol points run in the native C++
+engine (``utils/native.py``, ``csrc/gpo_native.cpp``) where it builds, exactly where
+the reference's do and with the same seeds drawn from the generator; otherwise numpy
+and scipy.stats.qmc, in the arithmetic and the random-stream order of the
+reference's numpy branch.
 """
 from __future__ import annotations
 
@@ -47,7 +49,15 @@ def _scale_to_bounds(unit, bounds):
 def _lhs_unit(n, d, rng, criterion="center", iterations=20):
     """Latin hypercube in [0,1]^d. 'center': midpoints of stratified intervals
     (pyDOE lhs(criterion='center')); 'maximin': best of `iterations` random-centered
-    designs by min pairwise distance (pyDOE criterion='maximin')."""
+    designs by min pairwise distance (pyDOE criterion='maximin').
+
+    The maximin search loop runs in the native C++ engine when available
+    (csrc/gpo_native.cpp maximin_lhs): it is O(iterations * n^2 * d) host work."""
+    if criterion == "maximin":
+        from ..utils import native
+
+        if native.available():
+            return native.maximin_lhs(n, d, iterations, rng.integers(2**62))
 
     def one(center=True):
         cut = np.linspace(0, 1, n + 1)
@@ -153,22 +163,33 @@ def latin_mixed_design(space, n, seed=None, iterations=None, verbose=False):
                     return False
             return True
 
-        H = None
-        for _retry in range(10):
-            maxdist = 0.0
-            for _ in range(iterations):
-                # stratified interval-start values, permuted per dim (:45-51)
-                starts = np.linspace(0, 1, n, endpoint=False)
-                Hc = np.stack([starts[rng.permutation(n)] for _ in ddims], axis=1)
-                d = np.linalg.norm(Hc[:, None, :] - Hc[None, :, :], axis=-1)
-                dmin = np.min(d + np.eye(n) * 1e9)
-                if maxdist < dmin and representation_ok(Hc):
-                    maxdist = dmin
-                    H = Hc.copy()
-            if H is not None:
-                break
-        if H is None:  # give up on representation, use the last candidate
-            H = Hc
+        from ..utils import native
+
+        if native.available():
+            # the native search loop (csrc/gpo_native.cpp discrete_lhs), the same
+            # algorithm: stratified starts, representation >= floor(0.8 n / levels),
+            # maximize the min pairwise distance, 10 retries
+            H, _ok = native.discrete_lhs(
+                n, [len(v) for v in discrete_values], iterations, 10, 0.8,
+                rng.integers(2**62),
+            )
+        else:
+            H = None
+            for _retry in range(10):
+                maxdist = 0.0
+                for _ in range(iterations):
+                    # stratified interval-start values, permuted per dim (:45-51)
+                    starts = np.linspace(0, 1, n, endpoint=False)
+                    Hc = np.stack([starts[rng.permutation(n)] for _ in ddims], axis=1)
+                    d = np.linalg.norm(Hc[:, None, :] - Hc[None, :, :], axis=-1)
+                    dmin = np.min(d + np.eye(n) * 1e9)
+                    if maxdist < dmin and representation_ok(Hc):
+                        maxdist = dmin
+                        H = Hc.copy()
+                if H is not None:
+                    break
+            if H is None:  # give up on representation, use the last candidate
+                H = Hc
         samples[:, ddims] = map_levels(H)
 
     # categorical / bandit columns fall back to random fill
@@ -212,7 +233,13 @@ def sobol_design(space, n, seed=None):
     _fill_noncontinuous(space, samples, rng)
     cdims = space.get_continuous_dims()
     if cdims:
-        unit = _sobol_unit(n, len(cdims))
+        from ..utils import native
+
+        unit = None
+        if native.available() and len(cdims) <= 16:
+            unit = native.sobol_points(n, len(cdims))
+        if unit is None:
+            unit = _sobol_unit(n, len(cdims))
         samples[:, cdims] = _scale_to_bounds(unit, space.get_continuous_bounds())
     return samples
 

@@ -26,7 +26,15 @@
 //   * rcp.approx.ftz    1 / r (exponential, cosine) and 1 / (1 + r^2 / 2)
 //                       (ratquad) in the backward only: 1 ulp.
 //   * .ftz              results under 1.2e-38 become 0.
-// All are far inside the kernels' checks (rtol 2e-5 forward, 1e-4 backward).
+// Each error is inside the kernels' checks against their plain versions (rtol
+// 2e-5 forward, 1e-4 backward), but they are not unbiased: against a float64 K
+// on an H100 the mean error of K's entries is +6.7e-9 of the variance where the
+// plain version's is -2.9e-9 (5 x 4096 x 4096 ARD Matern52), and B2's
+// parameter gradients +2e-7 where the plain ones are -8e-8; at a fitted point
+// with cond(Ky) ~ 1e8 the float32 LML feels that bias (ROADMAP C9). The
+// exponential's comes from pre-scaling its argument by log2 e: ex2.approx of
+// t = x log2(e)_hi, corrected by the FMA residual of that product, removes it
+// (gaussian_process_optimization_tpu_torch/prof_b1_bias.py measures each form).
 // The cosine family keeps cosf / sinf: the one-instruction forms lose
 // absolute accuracy as r grows past pi, and r is not bounded. They are called,
 // not inlined: their range reduction is long, a kernel holds 16 entries'

@@ -141,12 +141,79 @@ def _rbf_blocks(variance, lengthscale, order, like):
     return F * (d[None, :] / d[:, None]), P / (d[:, None] * d[None, :]), H * d[None, :]
 
 
+# The matrix exponential as the reference takes it (jax.scipy.linalg.expm:
+# scaling and squaring with a diagonal Pade approximant r_m = q_m^-1 p_m, m
+# chosen from ||A||_1; Higham 2005, "The scaling and squaring method for the
+# matrix exponential revisited"), written from its formulas: per dtype, the
+# norm that bounds the scaled matrix, the norms where m steps up, and the m.
+_PADE = {
+    3: (120., 60., 12., 1.),
+    5: (30240., 15120., 3360., 420., 30., 1.),
+    7: (17297280., 8648640., 1995840., 277200., 25200., 1512., 56., 1.),
+    9: (17643225600., 8821612800., 2075673600., 302702400., 30270240., 2162160., 110880.,
+        3960., 90., 1.),
+    13: (64764752532480000., 32382376266240000., 7771770303897600., 1187353796428800.,
+         129060195264000., 10559470521600., 670442572800., 33522128640., 1323241920.,
+         40840800., 960960., 16380., 182., 1.),
+}
+_EXPM = {
+    torch.float32: (3.925724783138660, (4.258730016922831e-1, 1.880152677804762), (3, 5, 7)),
+    torch.float64: (5.371920351148152, (1.495585217958292e-2, 2.539398330063230e-1,
+                                        9.504178996162932e-1, 2.097847961257068),
+                    (3, 5, 7, 9, 13)),
+}
+_MAX_SQUARINGS = 16
+
+
+def _pade_uv(A, m):
+    """(U, V) of the order-m Pade approximant: p_m = U + V, q_m = -U + V."""
+    b = _PADE[m]
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    A2 = A @ A
+    if m == 3:
+        return A @ (b[3] * A2 + b[1] * eye), b[2] * A2 + b[0] * eye
+    A4 = A2 @ A2
+    if m == 5:
+        return (A @ (b[5] * A4 + b[3] * A2 + b[1] * eye),
+                b[4] * A4 + b[2] * A2 + b[0] * eye)
+    A6 = A4 @ A2
+    if m == 7:
+        return (A @ (b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye),
+                b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye)
+    if m == 9:
+        A8 = A6 @ A2
+        return (A @ (b[9] * A8 + b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye),
+                b[8] * A8 + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye)
+    return (A @ (A6 @ (b[13] * A6 + b[11] * A4 + b[9] * A2) + b[7] * A6 + b[5] * A4
+                 + b[3] * A2 + b[1] * eye),
+            A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2) + b[6] * A6 + b[4] * A4 + b[2] * A2
+            + b[0] * eye)
+
+
 def _expm(M):
-    """``matrix_exp`` taken in float64 and returned in ``M``'s dtype: Q = P0 -
-    A P0 A^T cancels where the step is short, and torch's float32 exponential
-    (its own series, not the reference's Pade) alone put 5x the JAX package's
-    float32 error into the LML."""
-    return torch.linalg.matrix_exp(M.to(torch.float64)).to(M.dtype)
+    """exp(M) over the last two axes by scaling and squaring, in ``M``'s dtype
+    (float32: Pade 3 / 5 / 7; float64: 3 / 5 / 7 / 9 / 13), each matrix with
+    its own order and squarings; NaN where more than 16 squarings are needed.
+    The float32 form matters: Q = P0 - A P0 A^T cancels where the step is
+    short, and another float32 exponential (torch's series) put 5x the
+    reference's float32 error into the LML."""
+    if M.dtype not in _EXPM:
+        raise TypeError(f"_expm takes float32 or float64, not {M.dtype}")
+    maxnorm, conds, orders = _EXPM[M.dtype]
+    norm = M.detach().abs().sum(-2).amax(-1)  # ||M||_1, per matrix; picks, not differentiated
+    squarings = torch.clamp(torch.floor(torch.log2(norm / maxnorm)), min=0.0)
+    A = M / (2.0 ** squarings)[..., None, None]
+    branch = torch.bucketize(norm, torch.tensor(conds, dtype=M.dtype, device=M.device),
+                             right=True)
+    U, V = torch.empty_like(A), torch.empty_like(A)
+    for k in torch.unique(branch).tolist():
+        rows = branch == k
+        U[rows], V[rows] = _pade_uv(A[rows], orders[k])
+    R = torch.linalg.solve(-U + V, U + V)
+    for i in range(min(int(squarings.max()) if squarings.numel() else 0, _MAX_SQUARINGS)):
+        R = torch.where((squarings > i)[..., None, None], R @ R, R)
+    return torch.where((squarings > _MAX_SQUARINGS)[..., None, None],
+                       torch.full_like(R, float("nan")), R)
 
 
 def _block_diag(blocks):

@@ -22,6 +22,7 @@ from gaussian_process_optimization_tpu.bo.space import bounds_to_space
 from gaussian_process_optimization_tpu.models import mean_functions as jmf
 from gaussian_process_optimization_tpu.models.bo_models import GPModel as JGPModel
 from gaussian_process_optimization_tpu.utils import native
+from gaussian_process_optimization_tpu_torch.utils import native as tnative
 from gaussian_process_optimization_tpu_torch import regret, workload
 from gaussian_process_optimization_tpu_torch.bo import (BayesianOptimization,
                                                         ModularBayesianOptimization)
@@ -43,9 +44,10 @@ def branin(x):
 
 @pytest.fixture(autouse=True)
 def numpy_branch(monkeypatch):
-    """Hold the reference's designs to their numpy branch (the port has no
-    native engine)."""
+    """Hold both packages' designs to their numpy branch (the native engines
+    are held to each other in tests/test_torch_native.py)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def _common(**kw):

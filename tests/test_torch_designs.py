@@ -1,6 +1,6 @@
 """The torch port's host-side pieces against the JAX package's, exactly: the
-six experiment designs (the reference pinned to its numpy branch, not its
-native engine), the 16 test functions with their bounds and minima, the anchor
+six experiment designs (both packages pinned to their numpy branch; the
+native engines are tested in test_torch_native.py), the 16 test functions with their bounds and minima, the anchor
 point generators, and the DIRECT and CMA-ES optimizers."""
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ from gaussian_process_optimization_tpu.bo.space import DesignSpace as JSpace
 from gaussian_process_optimization_tpu.ops.cmaes import cma_minimize as jcma
 from gaussian_process_optimization_tpu.ops.direct import direct_minimize as jdirect
 from gaussian_process_optimization_tpu.utils import native
+from gaussian_process_optimization_tpu_torch.utils import native as tnative
 from gaussian_process_optimization_tpu_torch.bo import anchor_points as tanchor
 from gaussian_process_optimization_tpu_torch.bo import designs as tdesigns
 from gaussian_process_optimization_tpu_torch.bo import objectives as tobjectives
@@ -36,9 +37,11 @@ DESIGNS = ["random", "latin", "latin_mixed", "sobol", "grid", "hammersley"]
 
 @pytest.fixture
 def numpy_branch(monkeypatch):
-    """The reference's designs take a native engine when it is built; the port
-    is numpy and scipy, so the reference is held to its numpy branch."""
+    """Both packages' designs take their native engine when it is built; here
+    both are held to their numpy branch (the engines are held to each other in
+    tests/test_torch_native.py)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.mark.parametrize("space", list(SPACES))

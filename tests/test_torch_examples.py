@@ -16,6 +16,7 @@ from gaussian_process_optimization_tpu.bo.space import DesignSpace as JSpace
 from gaussian_process_optimization_tpu.bo.space import bounds_to_space as jbounds_to_space
 from gaussian_process_optimization_tpu.models.gp import GPRegression as JGP
 from gaussian_process_optimization_tpu.utils import native
+from gaussian_process_optimization_tpu_torch.utils import native as tnative
 from gaussian_process_optimization_tpu_torch.examples import (
     branin_bo,
     classification_and_latents,
@@ -32,9 +33,11 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 @pytest.fixture
 def numpy_branch(monkeypatch):
-    """The reference's designs take a native engine when it is built; the port
-    keeps the numpy branch, so the reference is held to it."""
+    """Both packages' designs take their native engine when it is built; here
+    both are held to their numpy branch (the engines are held to each other in
+    tests/test_torch_native.py)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 def _branin_design(n=5, seed=0):

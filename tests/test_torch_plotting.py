@@ -21,6 +21,7 @@ from gaussian_process_optimization_tpu.models.gplvm import make_gplvm as jmake_g
 from gaussian_process_optimization_tpu.models.sparse import SparseGPRegression as JSparse
 from gaussian_process_optimization_tpu.models.zoo import GPHeteroscedasticRegression as JHet
 from gaussian_process_optimization_tpu.utils import native
+from gaussian_process_optimization_tpu_torch.utils import native as tnative
 from gaussian_process_optimization_tpu.utils import plotting as jplotting
 from gaussian_process_optimization_tpu.utils import plotting_library as jpl
 import gaussian_process_optimization_tpu_torch.kernels as tk
@@ -299,6 +300,7 @@ def test_bo_plot_acquisition_hands_the_same_arrays(record, monkeypatch):
     two packages' values differ by ~3e-9 of it there. Marked slow: the JAX
     package compiles its loop's programs (~13 s)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     kw = dict(f=lambda x: np.asarray(objectives.forrester(x)),
               domain=bounds_to_space(objectives.forrester.bounds), initial_design_numdata=5,
               initial_design_type="latin", exact_feval=True, seed=0, max_iters=0,

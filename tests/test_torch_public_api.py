@@ -35,8 +35,6 @@ MODULES_NOT_PORTED = {
                           "(csrc/stationary_k*.cu), bound in ops/cuda_kernels.py",
     "ops.pallas_linalg": "the Pallas kernels B3 / B4: the port's are CUDA C++ "
                          "(csrc/tri_inv.cu, csrc/chol_blocks.cu), bound in ops/cuda_linalg.py",
-    "utils.native": "the native design engine: the port keeps the numpy branch "
-                    "(ROADMAP 'Not ported')",
     "utils.pytree": "the JAX pytree registration: the port's is utils/tree.py",
 }
 # public names of reference modules (module.name or module.Class.attribute)

@@ -9,6 +9,7 @@ from gaussian_process_optimization_tpu.bo import objectives
 from gaussian_process_optimization_tpu.bo.methods import BayesianOptimization as JBO
 from gaussian_process_optimization_tpu.models import rf_model as jrf
 from gaussian_process_optimization_tpu.utils import native
+from gaussian_process_optimization_tpu_torch.utils import native as tnative
 from gaussian_process_optimization_tpu_torch.bo import BayesianOptimization
 from gaussian_process_optimization_tpu_torch.models import rf_model as trf
 from torch_threads import one_torch_thread  # noqa: F401
@@ -16,9 +17,10 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def numpy_branch(monkeypatch):
-    """Hold the reference's designs to their numpy branch (the port has no
-    native engine)."""
+    """Hold both packages' designs to their numpy branch (the native engines
+    are held to each other in tests/test_torch_native.py)."""
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.mark.parametrize("seed,depth", [(0, 8), (3, 12)])

@@ -26,6 +26,7 @@ from gaussian_process_optimization_tpu.models.sparse import SparseGPRegression a
 from gaussian_process_optimization_tpu.models.svgp import SVGP as JSVGP
 from gaussian_process_optimization_tpu.parallel import sharded as js
 from gaussian_process_optimization_tpu.utils import native
+from gaussian_process_optimization_tpu_torch.utils import native as tnative
 import gaussian_process_optimization_tpu_torch.kernels as tk
 from gaussian_process_optimization_tpu_torch.bo import BayesianOptimization
 from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
@@ -346,6 +347,7 @@ def test_bo_suggest_on_mesh_matches_jax(meshes, monkeypatch):
     point, 1e-6 (the loop tests' tolerance)."""
     jmesh, tmesh = meshes
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     kw = dict(f=lambda x: np.asarray(objectives.forrester(x)),
               domain=bounds_to_space(objectives.forrester.bounds), acquisition_type="EI",
               initial_design_numdata=4, initial_design_type="latin", exact_feval=True,

@@ -3,10 +3,13 @@ CPU: every spec family's -LML and its gradient for every leaf (rtol 1e-9 and
 1e-7), the RTS prediction (rtol 1e-8; the Brownian + linear sum 1e-6, whose
 smoother inverts a near-singular predicted covariance), the kernel bridge
 ``from_kernel``, the Matern forms against the dense GP (exact SDEs), and
-``convert.state_space_from_leaves``."""
+``convert.state_space_from_leaves``; the float32 and float64 matrix
+exponential against ``jax.scipy.linalg.expm`` and the float32 -LML gap of
+``state_space_example`` against the JAX package's."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 import gaussian_process_optimization_tpu.kernels as jk
 from gaussian_process_optimization_tpu.models import state_space as jss
@@ -106,3 +109,99 @@ def test_one_dimensional_only():
         tss.StateSpaceGP.create(np.zeros((5, 2)), np.zeros(5), **CPU)
     with pytest.raises(ValueError, match="t=0"):
         tss.StateSpaceGP.create(np.array([-1.0, 0.0]), np.zeros(2), family="brownian", **CPU)
+
+
+# ------------------------------------------------ the matrix exponential (C18)
+# ||A||_1 of one case in each Pade branch of each dtype (float32: 3 / 5 / 7
+# below 0.426 / 1.88 / 3.93; float64: 3 / 5 / 7 / 9 / 13 below 0.015 / 0.254 /
+# 0.950 / 2.10 / 5.37) and one that needs squarings in both
+EXPM_NORMS = (0.01, 0.1, 0.5, 1.0, 3.0, 50.0)
+
+
+def _expm_case(norm, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((6, 6)) - 2.0 * np.eye(6)  # stable, as F dt is
+    return (G / np.abs(G).sum(0).max() * norm).astype(dtype)
+
+
+def _expm_pair(A):
+    """(port, jax.scipy.linalg.expm) of A, in A's dtype."""
+    import jax.numpy as jnp
+    from jax.scipy.linalg import expm
+
+    with jax.enable_x64(A.dtype == np.float64):
+        want = np.asarray(jax.jit(expm)(jnp.asarray(A)))
+    got = tss._expm(torch.as_tensor(A)).numpy()
+    assert got.dtype == want.dtype == A.dtype
+    return got, want
+
+
+@pytest.mark.parametrize("norm", EXPM_NORMS)
+def test_expm_float32_is_the_references_pade(norm):
+    """Within 4 float32 ulps of the largest entry, times 2 for each squaring
+    (a squaring at most doubles a relative difference)."""
+    A = _expm_case(norm, np.float32)
+    got, want = _expm_pair(A)
+    squarings = max(0.0, np.floor(np.log2(np.abs(A).sum(0).max() / 3.925724783138660)))
+    tol = 4 * 2.0 ** squarings * np.finfo(np.float32).eps * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol
+
+
+@pytest.mark.parametrize("norm", EXPM_NORMS)
+def test_expm_float64_is_the_references_pade(norm):
+    got, want = _expm_pair(_expm_case(norm, np.float64))
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_expm_takes_each_matrix_own_branch_in_a_batch():
+    """A batch of every norm: each matrix's exponential is the reference's
+    within the unbatched tolerances (a branch taken from another matrix's norm
+    would miss them by the approximant's error), and more than 16 squarings
+    give NaN, as in the reference."""
+    for dtype, rel in ((np.float32, 4 * np.finfo(np.float32).eps), (np.float64, 1e-12)):
+        A = np.stack([_expm_case(n, dtype, seed=i) for i, n in enumerate(EXPM_NORMS)])
+        batch = tss._expm(torch.as_tensor(A)).numpy()
+        for i in range(len(A)):
+            _, want = _expm_pair(A[i])
+            squarings = max(0.0, np.floor(np.log2(np.abs(A[i]).sum(0).max() / 3.925724783138660)))
+            tol = rel * (2.0 ** squarings if dtype == np.float32 else 1.0)
+            assert np.abs(batch[i] - want).max() <= tol * np.abs(want).max()
+    huge = tss._expm(torch.full((2, 2), 1e7, dtype=torch.float64))
+    assert bool(torch.isnan(huge).all())
+
+
+def test_state_space_example_f32_gap_is_the_references():
+    """``state_space_example``'s float32 -LML against its float64, in both
+    packages (each float64 model, every float leaf scaled by s, cast to
+    float32), the mean gap over four s: the port's within 1.5x of the JAX
+    package's now that both take the same float32 exponential."""
+    from examples.gallery import state_space as jgallery
+    from gaussian_process_optimization_tpu_torch.examples.gallery import state_space as tgallery
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    ref = jgallery.state_space_example(optimize=False, plot=False)
+    twin = tgallery.state_space_example(optimize=False, plot=False, device="cpu",
+                                        dtype=torch.float64)
+    lml = jax.jit(lambda m: m.log_marginal_likelihood())
+
+    def scaled(tree, s, dtype, tmap):
+        def leaf(a):
+            if isinstance(a, torch.Tensor):
+                return (a * s).to(dtype) if a.is_floating_point() else a
+            if hasattr(a, "dtype") and np.issubdtype(a.dtype, np.floating):
+                return (a * s).astype(dtype)
+            return a
+        return tmap(leaf, tree)
+
+    jax_gaps, port_gaps = [], []
+    for s in (1.0, 1.01, 1.02, 1.03):
+        j64 = float(lml(scaled(ref, s, np.float64, jax.tree_util.tree_map)))
+        with jax.enable_x64(False):
+            j32 = float(lml(scaled(ref, s, np.float32, jax.tree_util.tree_map)))
+        jax_gaps.append(abs(j32 - j64) / abs(j64))
+        t64 = float(scaled(twin, s, torch.float64, tree_map).log_marginal_likelihood())
+        t32 = float(scaled(twin, s, torch.float32, tree_map).log_marginal_likelihood())
+        port_gaps.append(abs(t32 - t64) / abs(t64))
+    print(f"state_space_example f32 -LML rel gap: port {np.mean(port_gaps):.3e} "
+          f"jax {np.mean(jax_gaps):.3e}")
+    assert np.mean(port_gaps) <= 1.5 * np.mean(jax_gaps)
