@@ -446,11 +446,28 @@ def _matern_rows(dev, lanes, gen):
     return torch.cat([var, torch.zeros_like(var), ls], dim=1).contiguous()
 
 
+# B1's and B2's mean signed error against float64 may be at most this
+# multiple of the plain version's, in magnitude (ROADMAP C9: ex2.approx of a
+# pre-scaled argument read +6.7e-9 of the variance in K where the plain
+# version reads -2.9e-9, and +2e-7 in B2's d variance / d lengthscale where
+# the plain version reads -8e-8; prof_b1_bias.py takes it apart)
+BIAS_RATIO_LIMIT = 2.0
+
+
+def _gate_bias(name, kernel, plain):
+    """|kernel| <= BIAS_RATIO_LIMIT |plain| for a mean signed error."""
+    ratio = abs(kernel) / abs(plain)
+    print(f"# {name}: kernel mean {kernel:+.3e}, plain mean {plain:+.3e} (|kernel| / |plain| "
+          f"{ratio:.2f}, limit {BIAS_RATIO_LIMIT:g}; C9)")
+    if not ratio <= BIAS_RATIO_LIMIT:
+        raise AssertionError(f"{name}: the kernel's mean error is biased against the plain "
+                             f"version's")
+
+
 def _b1_bias(X, p, got, want):
-    """B1's and the plain version's mean signed and mean absolute error of K
-    (B, N, N) against a float64 K on the card, over each lane's variance: a
-    reading (ROADMAP C9: at a fitted point with cond(Ky) ~ 1e8 the float32 LML
-    feels the bias of K's entries; prof_b1_bias.py takes it apart)."""
+    """B1's and the plain version's mean signed (and mean absolute) error of K
+    (B, N, N) against a float64 K on the card, over each lane's variance,
+    gated by :func:`_gate_bias`."""
     from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
 
     K64 = ck.k_build_plain(X.double(), X.double(), p.double(), "matern52", True)
@@ -458,8 +475,17 @@ def _b1_bias(X, p, got, want):
     (s, a), (sp, ap) = [(float(e.mean()), float(e.abs().mean()))
                         for e in ((got.double() - K64) / var, (want.double() - K64) / var)]
     del K64
-    print(f"# B1 K - K64 over the variance: kernel mean {s:+.3e}, mean |.| {a:.3e}; plain "
-          f"mean {sp:+.3e}, mean |.| {ap:.3e} (kernel mean / plain mean {s / sp:+.2f}; C9)")
+    print(f"# B1 K - K64 over the variance: kernel mean |.| {a:.3e}, plain mean |.| {ap:.3e}")
+    _gate_bias("B1 K - K64 over the variance", s, sp)
+
+
+def _b2_bias(dp, plain, want):
+    """B2's and the plain version's mean signed relative error of the d
+    variance and d lengthscale columns of ``dp (B, 8)`` against the float64
+    ``want``, gated by :func:`_gate_bias`."""
+    for name, cols in (("d variance", slice(0, 1)), ("d lengthscale", slice(2, 8))):
+        k, p = (float(((g.double() - want) / want.abs())[:, cols].mean()) for g in (dp, plain))
+        _gate_bias(f"B2 {name} - float64, relative", k, p)
 
 
 def phase_kernels(dev, n: int = 4096, m: int = 1000):
@@ -512,7 +538,9 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
                                      "matern52", True, False, False, True)
     _close(f"B2 dparams {fit_tag}", dp, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
     errs = [_max_err(dp, want)]
-    del want
+    dp_plain, _, _ = ck.k_backward_plain(X, X, p5, G, "matern52", True, False, False, True)
+    _b2_bias(dp, dp_plain, want)
+    del want, dp_plain
     Gs = (2 * torch.rand(1, n, m, generator=gen, device=dev) - 0.5).contiguous()
     got = ck.stationary_k_backward(X, C, p1, Gs, "matern52", True)
     again = ck.stationary_k_backward(X, C, p1, Gs, "matern52", True)
@@ -1293,15 +1321,16 @@ SPARSE_PREDICT_LIMIT = 0.05   # |prediction - truth| at 5 points after the fit
 # leg also reads it through the plain K on the card and on the CPU at the same
 # leaves, and a control each limit must catch: the card's float32 -LML with
 # what the warp reads (the targets, or the inputs) off by WARPED_CONTROL_SHIFT
-# relative, a random sign per row. warpedGP's fitted Ky (variance 11.2, noise
-# 5.6e-4, N = 4096) has cond ~8e7, past float32's 1 / eps, and its -LML (~ -8e2)
-# is a small difference of terms ~1e4: the sound readings are 9.50e-3 through
-# B1 / B2, 3.12e-3 through the plain K, 2.59e-3 on the CPU, and the control
-# 2.73e-2, so its limit sits at 2e-2 (B1's excess is its bias, ROADMAP C9).
-# input_warped_GP reads 6.71e-4, 6.78e-4 and 1.56e-5, its control 1.25e-1: the
-# limit stays 1e-3. (NVIDIA H100 80GB HBM3, 700 W; the readings this script
-# prints, PERF.md section 6.)
-WARPED_LML_LIMIT = {"warpedGP": 2e-2, "input_warped_GP": 1e-3}
+# relative, a random sign per row. warpedGP's fitted Ky (variance 3.26, noise
+# 2.0e-4, N = 4096) is past float32's 1 / eps, and its -LML (~ -8e2) is a small
+# difference of terms ~1e4: the sound readings are 5.72e-4 through B1 / B2,
+# 4.42e-3 through the plain K, 3.33e-3 on the CPU, and the control 1.79e-2,
+# so its limit is 5e-3, under 1.5x the plain K's reading (B1's profile biased
+# K before ROADMAP C9's repair, and the limit was 2e-2). input_warped_GP reads
+# 6.72e-4, 6.66e-4 and 8.28e-6, its control 1.25e-1: the limit stays 1e-3.
+# (NVIDIA H100 80GB HBM3, 700 W; the readings this script prints, PERF.md
+# section 6.)
+WARPED_LML_LIMIT = {"warpedGP": 5e-3, "input_warped_GP": 1e-3}
 WARPED_CONTROL_SHIFT = 1e-2
 
 
@@ -1609,6 +1638,12 @@ CLASSIFY_ACCURACY = 0.8       # training accuracy of the classifiers
 # an evidence "falls" when it drops by more than this, relative: below it is
 # float32's rounding of an evidence of ~1e3
 EVIDENCE_SLACK = 1e-5
+# dense EP's float32 evidence against float64 at the leg's fitted point, EP
+# from zero sites in each dtype: 10x the JAX package's own float32 reading
+# there on the CPU (tests/test_torch_ep_cancellation.py::
+# test_jax_f32_evidence_at_the_cards_ep_fit), at most 1e-3
+EP_JAX_F32 = 2.291e-04
+EP_EVIDENCE_LIMIT = min(1e-3, 10 * EP_JAX_F32)
 SEQUENTIAL_EP_N = 256         # sequential EP's eager rank-1 loop, at this N only
 POOL_ROWS = 10_000
 # the CLI run's refits stop after this many L-BFGS steps (GPyOpt's 1000
@@ -1735,28 +1770,71 @@ def _alternated(name, model, post):
     return model, post, lmls, runs, secs
 
 
+def _ep_rounds(X, labels):
+    """EP to convergence, then two alternated rounds; the float32 evidence at
+    the fitted point against float64 (EP from zero sites in each dtype).
+    Returns (model, posterior, sweeps of the first EP, EP s, the rounds'
+    evidences, their EP runs, optimize s, float64 evidence, rel)."""
+    from gaussian_process_optimization_tpu_torch.models.classification import GPClassification
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    t0 = _sync()
+    model = GPClassification.create(X, labels)
+    post = model.inference()
+    ep_s = _sync() - t0
+    sweeps = post.sweeps
+    model, post, lmls, runs, opt_s = _alternated("EP", model, post)
+    with torch.no_grad():
+        e64 = float(tree_map(lambda t: t.double(), model).inference().lml)
+    return (model, post, sweeps, ep_s, lmls, runs, opt_s, e64,
+            abs(lmls[-1] - e64) / abs(e64))
+
+
+def _ep_f32_factor_evidence(model, post):
+    """The EP gate's control: the evidence at ``post``'s sites with B = I +
+    S^1/2 K S^1/2 factored in float32 by the jitter ladder (``cholesky_ex``),
+    where ``models/ep`` factors it in float64."""
+    from gaussian_process_optimization_tpu_torch.models import ep
+    from gaussian_process_optimization_tpu_torch.models.likelihoods import Bernoulli
+    from gaussian_process_optimization_tpu_torch.ops import linalg
+
+    with torch.no_grad():
+        K = model.kern.K(model.X)
+        tau, nu = post.tau_site.to(K.dtype), post.nu_site.to(K.dtype)
+        sW = torch.sqrt(torch.clamp(tau, min=ep._TAU_EPS))
+        L, _, _ = linalg.jitchol(ep._eye(K.shape[-1], K) + sW[:, None] * K * sW[None, :])
+        mu, sigma2, L, _ = ep._posterior_from_factor(K, tau, nu, L)
+        return float(ep._dense_ep_lml(Bernoulli(), model.Y, tau, nu, mu, sigma2, L, 1.0))
+
+
 def _leg_ep(X, labels):
     """Dense EP classification at N = 4096, D = 6 (parallel sweeps to
-    convergence, then two alternated rounds); sequential EP at N = 256."""
+    convergence, then two alternated rounds), through the kernels and through
+    the plain route; sequential EP at N = 256."""
+    from gaussian_process_optimization_tpu_torch.config import config
     from gaussian_process_optimization_tpu_torch.models.classification import GPClassification
     from gaussian_process_optimization_tpu_torch.models.ep import _dense_posterior_from_sites
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
     _zero_counts()
-    t0 = _sync()
-    model = GPClassification.create(X, labels)
-    post = model.inference()
-    ep_s = _sync() - t0
-    with torch.no_grad():
-        K64 = tree_map(lambda t: t.double(), model.kern).K(model.X.double())
-        _, S64, _, _ = _dense_posterior_from_sites(K64, post.tau_site.double(),
-                                                   post.nu_site.double())
-        smin32, smin64 = (float(torch.diagonal(S).min()) for S in (post.Sigma, S64))
-        del K64, S64
-    sweeps = post.sweeps
-    model, post, lmls, runs, opt_s = _alternated("EP", model, post)
+    model, post, sweeps, ep_s, lmls, runs, opt_s, e64, rel = _ep_rounds(X, labels)
     launches = _read_counts()
+    with torch.no_grad():
+        sig = [_dense_posterior_from_sites(m.kern.K(m.X), post.tau_site.to(m.X.dtype),
+                                           post.nu_site.to(m.X.dtype))[1]
+               for m in (model, tree_map(lambda t: t.double(), model))]
+        smin32, smin64 = (float(v.min()) for v in sig)
+        del sig
     acc = _accuracy(model, post)
+    config.use_cuda_kernels = False
+    try:
+        with torch.no_grad():
+            e32_plain = float(model.inference().lml)
+        plain = _ep_rounds(X, labels)
+    finally:
+        config.use_cuda_kernels = "auto"
+    rel_plain = abs(e32_plain - e64) / abs(e64)
+    rel_control = abs(_ep_f32_factor_evidence(model, post) - e64) / abs(e64)
     small = GPClassification.create(X[:SEQUENTIAL_EP_N], labels[:SEQUENTIAL_EP_N],
                                     inference_mode="sequential")
     t0 = _sync()
@@ -1766,15 +1844,36 @@ def _leg_ep(X, labels):
     print(f"# approximate, EP (N=4096, D=6, RBF, probit, parallel, f32): EP {ep_s:.3f} s "
           f"({sweeps} sweeps); min diag Sigma f32 {smin32:.4e} vs f64 {smin64:.4e} at the same "
           f"sites; optimize(rounds=2, maxiter=30) {opt_s:.3f} s, evidence {lmls}, each from EP "
-          f"of sweeps / last site change {runs} (stop below 1e-6); training "
-          f"accuracy {acc:.4f} (limit > {CLASSIFY_ACCURACY}); launches {launches}; sequential "
-          f"EP at N={SEQUENTIAL_EP_N}: {seq_s:.3f} s ({seq.sweeps} sweeps of {SEQUENTIAL_EP_N} "
-          f"rank-1 updates), evidence {float(seq.lml):.4f} vs parallel {float(par.lml):.4f}")
+          f"of sweeps / last site change {runs} (stop below 1e-6); at the fitted point "
+          f"(variance {float(model.kern.variance):.6g}, lengthscale "
+          f"{float(model.kern.lengthscale):.6g}) f32 {lmls[-1]:.4f} vs f64 {e64:.4f} (rel "
+          f"{rel:.3e}, limit {EP_EVIDENCE_LIMIT:g}); training accuracy {acc:.4f} (limit > "
+          f"{CLASSIFY_ACCURACY}); launches {launches}; sequential EP at N={SEQUENTIAL_EP_N}: "
+          f"{seq_s:.3f} s ({seq.sweeps} sweeps of {SEQUENTIAL_EP_N} rank-1 updates), evidence "
+          f"{float(seq.lml):.4f} vs parallel {float(par.lml):.4f}")
+    pm = plain[0]
+    print(f"# approximate, EP through the plain route (no B1 / B2 / B3): at the leg's fitted "
+          f"point f32 {e32_plain:.4f} vs f64 {e64:.4f} (rel {rel_plain:.3e}, limit "
+          f"{EP_EVIDENCE_LIMIT:g}); EP {plain[3]:.3f} s ({plain[2]} sweeps); optimize(rounds=2, "
+          f"maxiter=30) {plain[6]:.3f} s, evidence {plain[4]}, each from EP of sweeps / last "
+          f"site change {plain[5]}; at its own fitted point (variance "
+          f"{float(pm.kern.variance):.6g}, lengthscale {float(pm.kern.lengthscale):.6g}) f32 "
+          f"{plain[4][-1]:.4f} vs f64 {plain[7]:.4f} (rel {plain[8]:.3e}, a reading)")
+    print(f"# approximate, EP's control: the same sites' float32 evidence with B factored in "
+          f"float32 (cholesky_ex) {rel_control:.3e} from float64 (must exceed "
+          f"{EP_EVIDENCE_LIMIT:g})")
     if not acc > CLASSIFY_ACCURACY:
         raise AssertionError("EP: training accuracy too low")
     if not (math.isfinite(float(seq.lml)) and math.isfinite(smin32)):
         raise AssertionError("EP: sequential evidence or Sigma's diagonal not finite")
-    _gate_launches("EP", launches)
+    for route, r in (("kernels", rel), ("plain route", rel_plain)):
+        if not r <= EP_EVIDENCE_LIMIT:
+            raise AssertionError(f"EP ({route}): the float32 evidence at the fitted point is "
+                                 f"{r:.3e} from float64, past {EP_EVIDENCE_LIMIT:g}")
+    if not rel_control > EP_EVIDENCE_LIMIT:
+        raise AssertionError(f"EP: the control (B factored in float32) reads {rel_control:.3e}, "
+                             f"not past {EP_EVIDENCE_LIMIT:g}: the gate cannot see the factor")
+    _gate_launches("EP", launches, keys=("B1", "B2", "B3"))
     return launches
 
 
@@ -1803,7 +1902,7 @@ def _leg_epdtc(X, labels):
     return launches
 
 
-def _fit_leg(name, model, extra="", stage_swaps=False):
+def _fit_leg(name, model, extra=""):
     """1 restart x 30 steps through models/fit.fit: the -LML falls and is
     finite; the float32 -LML against float64 at the fitted point printed, and
     float32 through the plain K (no B1 / B2), and the fitted leaves, exact in
@@ -1836,14 +1935,6 @@ def _fit_leg(name, model, extra="", stage_swaps=False):
           f"{rel:.2e}), f32 through the plain K {plain:.4f} (rel {rel_plain:.2e})"
           f"{extra(fitted) if extra else ''}; launches {launches}; fitted leaves "
           f"{json.dumps(leaves)}")
-    if stage_swaps:
-        def rel(m):
-            with torch.no_grad():
-                return {"rel": abs(-float(m.log_marginal_likelihood()) - after64) / abs(after64)}
-
-        _stage_swaps(f"approximate, {name.split(' (')[0]}, -LML f32 vs f64 at the fitted point",
-                     lambda: rel(fitted), lambda: rel(tree_map(lambda t: t.cpu(), fitted)),
-                     ("rel",))
     if not (math.isfinite(after) and after < before):
         raise AssertionError(f"{name}: the -LML did not fall, or is not finite")
     _gate_launches(name, launches)
@@ -1872,7 +1963,7 @@ def _leg_laplace(X, labels, outliers):
         with torch.no_grad():
             start = int(model.inference().iterations)
         out.append(_fit_leg(f"{name} (Newton steps at the start {start})", model,
-                            _newton_steps, stage_swaps=lik is None))
+                            _newton_steps))
     return {k: sum(d[k] for d in out) for k in out[0]}
 
 
@@ -2806,9 +2897,23 @@ def phase_latent(where=None, gplvm_steps=None, bgplvm_steps=None, n3=LATENT_LEG3
 # fitted BayesianOptimization(mesh=...) surrogate and suggestion
 # (tests/data/sharded_bo_fitted.npz; test_jax_f32_ei_reading_at_the_cards_bo_fit):
 # there cond(Ky) ~ 1e8 and float32's -EI is 6% off in both packages; its
-# limit is 2.5x the reading (SHARDED_EI_F64_LIMIT).
-# The fits' and the argmax's limits are the main path's (phase 4): -LML f32 vs
-# f64 1e-3, -EI 1e-2.
+# limit is 2.5x the reading (SHARDED_EI_F64_LIMIT). At the card's fit with the
+# unbiased K (tests/data/sharded_bo_fitted_unbiased_k.npz;
+# test_jax_f32_ei_mesh_vs_no_mesh_at_the_cards_bo_fit, pinned to one core) the
+# JAX package's own float32 argmax with and without a 4-device mesh ends up to
+# 2.31e-1 apart in -EI over five sweep seeds ("bo_ei_mesh_f32"; float64 2.1e-10,
+# "bo_ei_mesh_f64"): the anchors' float32 lanes, batched otherwise, end in
+# other optima. So the argmax with and without the mesh is compared in float64
+# on the card at this phase's seed (SHARDED_EI_LIMIT, the main path's -EI
+# limit). What the mesh computes is held at fixed points, the sweep and its
+# best anchors: in float64 sharded against unsharded (SHARDED_BO_F64_LIMIT);
+# in float32 each against float64 and against each other at 2x the JAX
+# package's own float32 error there ("acq_*_vs_f64": 18-24%, the EI's best
+# points resting on a variance ~1e-4 of k(x, x)). How far two float32
+# programs drift apart moves with any change of rounding, the host's thread
+# count included (1.4e-2 to 1.9e-1 for the sweep, prof_stages.mesh_sweep), so
+# a sharded-vs-unsharded reading of either package is no limit. The fits'
+# limit is the main path's (phase 4): -LML f32 vs f64 1e-3.
 SHARDED_JAX_F32 = {
     "exact_vs_unsharded": 2.085e-07, "exact_vs_f64": 1.829e-07,
     "distributed_vs_unsharded": 6.254e-07, "distributed_vs_f64": 2.341e-07,
@@ -2816,16 +2921,22 @@ SHARDED_JAX_F32 = {
     "svgp_first_vs_unsharded": 2.080e-07, "svgp_first_vs_f64": 1.970e-07,
     "svgp_steps_vs_f64": 2.307e-03,
     "cholesky_vs_f64": 1.505e-06, "cholesky_vs_unsharded": 2.109e-06,
-    "bo_ei_vs_f64": 6.332e-02}
+    "bo_ei_vs_f64": 6.332e-02,
+    "bo_ei_mesh_f32": 2.308e-01, "bo_ei_mesh_f64": 2.108e-10,
+    "acq_sweep_vs_f64": 2.235e-01, "acq_anchor_vs_f64": 2.388e-01,
+    "acq_grad_vs_f64": 1.814e-01}
 SHARDED_FLOOR = 1e-5
 SHARDED_FIT_LIMIT = 1e-3
+# the argmax with and without the mesh in float64 (the main path's -EI limit)
 SHARDED_EI_LIMIT = 1e-2
 # -EI f32 vs f64 at the card's BO fit: 2.5x the JAX package's reading there
-# (the card's own reading was 6.08e-2 on an H100, 700 W)
+# (the card's own reading was 9.53e-3 on an H100 80GB HBM3, 700 W)
 SHARDED_EI_F64_LIMIT = 2.5 * SHARDED_JAX_F32["bo_ei_vs_f64"]
 # the BO fit with and without the mesh in float64 on the card, where no
 # float32 rounding can send a lane to another optimum
 SHARDED_BO_F64_LIMIT = 1e-6
+SWEEP_POINTS = 1000           # the mesh's float32 gate: seeded points in the box
+FIXED_ANCHORS = 8             # and the best of them by -EI, one lane pair a shard
 SHARDS = 4
 SHARDED_RESTARTS = 2          # restarts a shard (8 in all)
 SHARDED_STEPS = 30
@@ -2836,6 +2947,16 @@ CLUSTER_POINTS = 20
 CLUSTER_MAXITER = 30          # the reference's 80 is a cut of depth: 147 s at 80
 TRACE_DIR = ROOT / "chiprun_out" / "trace_phase12"
 SHARDED_BO_FITTED = ROOT / "chiprun_out" / "sharded_bo_fitted.npz"
+CLUSTER_FITTED = ROOT / "chiprun_out" / "cluster_first_round.npz"
+# the clustering's first-round lane log likelihoods, float32 against float64
+# at the same leaves and noise (max |LL32 - LL64| / max |LL64| over lanes):
+# 10x the JAX package's own float32 reading at the card's leaves
+# (tests/test_torch_cluster.py::test_jax_f32_first_round_reading_at_the_cards_leaves)
+CLUSTER_LL_JAX_F32 = 1.483e-03
+CLUSTER_LL_LIMIT = 10 * CLUSTER_LL_JAX_F32
+# the float64 clustering's lanes a fit (its first round's 820 take the plain
+# K route, which does not hold them at once in 80 GB)
+CLUSTER_F64_LANES = 128
 
 
 def _sharded_limit(key):
@@ -3072,12 +3193,9 @@ def _leg_sharded_fit(dev, mesh, acc, failures):
     shard, 8 in all, x 30 L-BFGS steps), against the unsharded Fitter from
     the same starts, and one BayesianOptimization(mesh=...) suggestion on the
     main data beside the same call without the mesh."""
-    import dataclasses
-
     from gaussian_process_optimization_tpu_torch import convert, workload
     from gaussian_process_optimization_tpu_torch.bo import BayesianOptimization
     from gaussian_process_optimization_tpu_torch.bo.acquisitions import neg_ei
-    from gaussian_process_optimization_tpu_torch.config import config
     from gaussian_process_optimization_tpu_torch.models.bo_models import masked_fmin
     from gaussian_process_optimization_tpu_torch.models.fit import Fitter
     from gaussian_process_optimization_tpu_torch.parallel import sharded
@@ -3138,8 +3256,11 @@ def _leg_sharded_fit(dev, mesh, acc, failures):
         xa, fa = opt.optimize(bo.acquisition)
     opt.mesh = mesh
     f_mesh = float(bo.acquisition.acquisition_function(x)[0, 0])
-    _check("suggestion -EI mesh vs no mesh (same model)", f_mesh, float(fa[0, 0]),
-           SHARDED_EI_LIMIT, failures)
+    print(f"# sharded, suggestion -EI f32 mesh vs no mesh (same model): {f_mesh:.6f} vs "
+          f"{float(fa[0, 0]):.6f}, rel {_rel(f_mesh, float(fa[0, 0])):.3e} (a reading: the JAX "
+          f"package's own float32 moves it up to {SHARDED_JAX_F32['bo_ei_mesh_f32']:.3e} over "
+          f"five sweep seeds, its float64 {SHARDED_JAX_F32['bo_ei_mesh_f64']:.3e})")
+    gp64 = _mesh_acquisition(bo, mesh, failures)
     # the fit without the mesh, from the same 8 starts in one lane batch: a
     # reading in float32 (the sharded fit is gated against it above, at fixed
     # data and settings); here the noise trains, and float32 lanes that differ
@@ -3159,17 +3280,24 @@ def _leg_sharded_fit(dev, mesh, acc, failures):
             b64._update_model()
             with torch.no_grad():
                 fits64.append(float(-b64.model.model.log_marginal_likelihood()))
+        if mesh_or_none is not None:
+            # the argmax with and without the mesh on the same float64 model
+            o64 = b64.acquisition_optimizer
+            s64 = o64._seed
+            with pt("acquisition argmax f64, mesh"):
+                _, f64_mesh = o64.optimize(b64.acquisition)
+            o64._seed, o64.mesh = s64, None
+            with pt("acquisition argmax f64, no mesh"):
+                _, f64_plain = o64.optimize(b64.acquisition)
+            o64.mesh = mesh
     _check("BO fit -LML f64 mesh vs no mesh", fits64[0], fits64[1], SHARDED_BO_F64_LIMIT,
            failures)
-    # float64 at the float32 run's leaves and effective noise (float32 floors
-    # it at config.f32_noise_floor, float64 does not); the leaves go to
-    # chiprun_out for the JAX package's own float32 reading there
+    _check("suggestion -EI f64 mesh vs no mesh (same model)", float(f64_mesh[0, 0]),
+           float(f64_plain[0, 0]), SHARDED_EI_LIMIT, failures)
+    # the leaves go to chiprun_out for the JAX package's own float32 readings
     gp, post, fmin = bo.model.device_state()
     SHARDED_BO_FITTED.parent.mkdir(exist_ok=True)
     np.savez_compressed(SHARDED_BO_FITTED, x=np.asarray(x), **convert.leaves_of(gp))
-    floor = config.f32_noise_floor - config.noise_jitter
-    gp64 = dataclasses.replace(_f64(gp), likelihood_variance=torch.clamp(
-        gp.likelihood_variance.double(), min=floor))
     with torch.no_grad():
         post64 = gp64.inference(precompute_inverse=True)
         xt = torch.as_tensor(x, dtype=torch.float64, device=dev)
@@ -3180,6 +3308,100 @@ def _leg_sharded_fit(dev, mesh, acc, failures):
           f"{float(gp.likelihood_variance):.4g}")
     _check("suggestion -EI f32 vs f64", ei32, ei64, SHARDED_EI_F64_LIMIT, failures)
     _report("BayesianOptimization(mesh=...)", pt)
+
+
+def _f64_at_f32_leaves(gp):
+    """``gp`` in float64 at its float32 leaves and at the noise float32
+    evaluates (float32 floors it at ``config.f32_noise_floor``, float64 does
+    not)."""
+    import dataclasses
+
+    from gaussian_process_optimization_tpu_torch.config import config
+
+    floor = config.f32_noise_floor - config.noise_jitter
+    return dataclasses.replace(_f64(gp), likelihood_variance=torch.clamp(
+        gp.likelihood_variance.double(), min=floor))
+
+
+def _gate(name, r, limit, failures):
+    print(f"# sharded, {name}: rel {r:.3e} (limit {limit:.3g})")
+    if not r <= limit:
+        failures.append(f"{name}: rel {r:.3e} > {limit:.3g}")
+
+
+def _mesh_acquisition(bo, mesh, failures):
+    """What the mesh changes in the argmax, at fixed points: -EI at
+    SWEEP_POINTS seeded points in the box, its rows split over the shards,
+    and -EI with its gradient at the FIXED_ANCHORS best of them, the lanes
+    split as the L-BFGS call splits them, each against the same rows or lanes
+    unsplit. In float64 at the float32 run's leaves no rounding of the mesh's
+    can move them past SHARDED_BO_F64_LIMIT. In float32, sharded and
+    unsharded are each held against float64 and against each other at twice
+    the JAX package's own float32 error at those points (two values each
+    within it of float64 differ by at most twice it), with a control: the
+    anchors' lanes gathered one shard out of place must read past it. The
+    points are those of tests/test_torch_sharded.py::fixed_anchor_points.
+    Returns the float64 model."""
+    from gaussian_process_optimization_tpu_torch.bo.acquisitions import neg_ei
+    from gaussian_process_optimization_tpu_torch.models.bo_models import masked_fmin
+    from gaussian_process_optimization_tpu_torch.parallel import sharded
+
+    gp, post, _ = bo.model.device_state()
+    gp64 = _f64_at_f32_leaves(gp)
+    with torch.no_grad():
+        post64 = gp64.inference(precompute_inverse=True)
+        args = {torch.float32: (gp, post, masked_fmin(gp, post)),
+                torch.float64: (gp64, post64, masked_fmin(gp64, post64))}
+
+    def neg(A, a):
+        return neg_ei(*a, A)
+
+    P = np.random.default_rng(0).uniform(-2.0, 2.0, size=(SWEEP_POINTS, 6))
+    pts = torch.as_tensor(P, dtype=gp.X.dtype, device=gp.X.device)
+    with torch.no_grad():
+        anchors = pts[torch.argsort(neg(pts, args[torch.float32]))[:FIXED_ANCHORS]]
+
+    def readings(a):
+        """{(what, "sharded" | "unsharded"): values} in a's dtype."""
+        dtype = a[0].X.dtype
+        P_, U_ = pts.to(dtype), anchors.to(dtype)
+        with torch.no_grad():
+            out = {("the sweep's -EI", "unsharded"): neg(P_, a),
+                   ("the sweep's -EI", "sharded"):
+                       sharded.make_sharded_sweep(lambda a, A: neg(A, a), mesh)(a, P_)}
+        for name, fun in (("unsharded", lambda U: neg(U, a)),
+                          ("sharded", sharded.sharded_lanes(
+                              mesh, neg, [sharded.place(a, d) for d in mesh.shards()]))):
+            U = U_.clone().requires_grad_(True)
+            v = fun(U)
+            (g,) = torch.autograd.grad(v.sum(), U)
+            out["the anchors' -EI", name] = v.detach()
+            out["the anchors' -EI gradient", name] = g
+        return out
+
+    r32, r64 = readings(args[torch.float32]), readings(args[torch.float64])
+    keys = {"the sweep's -EI": "acq_sweep_vs_f64", "the anchors' -EI": "acq_anchor_vs_f64",
+            "the anchors' -EI gradient": "acq_grad_vs_f64"}
+    shift = FIXED_ANCHORS // SHARDS
+    for what, key in keys.items():
+        _gate(f"{what} f64, sharded vs unsharded", _rel(r64[what, "sharded"],
+                                                        r64[what, "unsharded"]),
+              SHARDED_BO_F64_LIMIT, failures)
+        limit = 2 * SHARDED_JAX_F32[key]
+        for name in ("unsharded", "sharded"):
+            _gate(f"{what} f32 vs f64, {name}", _rel(r32[what, name], r64[what, "unsharded"]),
+                  limit, failures)
+        _gate(f"{what} f32, sharded vs unsharded", _rel(r32[what, "sharded"],
+                                                        r32[what, "unsharded"]),
+              limit, failures)
+        if what != "the sweep's -EI":
+            control = _rel(torch.roll(r32[what, "sharded"], shift, 0), r32[what, "unsharded"])
+            print(f"# sharded, control for {what} f32, the lanes gathered one shard out of "
+                  f"place: rel {control:.3e} (must exceed {limit:.3g})")
+            if not control > limit:
+                failures.append(f"{what}: the control reads {control:.3e}, not past "
+                                f"{limit:.3g}")
+    return gp64
 
 
 def _leg_profile(mesh, m, lml, acc, failures):
@@ -3206,45 +3428,75 @@ def _leg_profile(mesh, m, lml, acc, failures):
               "B1's kernel k_build_kernel")
 
 
-def _cluster_data(seed=0):
-    """CLUSTER_SERIES series of CLUSTER_POINTS times in four shape families
-    (two sinusoids, two ramps, as examples/latent_plots_and_clustering.py),
-    each shifted in time by U(-0.3, 0.3), noise 0.1; returns (data, inputs,
-    family of each series)."""
-    rng = np.random.default_rng(seed)
-    t = np.linspace(0.0, 3.0, CLUSTER_POINTS)[:, None]
-    families = (lambda s: np.sin(2.0 * s), lambda s: 1.5 * np.cos(3.0 * s),
-                lambda s: 2.0 - 2.0 * s, lambda s: -1.0 + 1.0 * s)
-    data, inputs, fam = [], [], []
-    for i in range(CLUSTER_SERIES):
-        f = i % len(families)
-        d = rng.uniform(-0.3, 0.3)
-        data.append(families[f](t - d).T + 0.1 * rng.standard_normal((1, CLUSTER_POINTS)))
-        inputs.append(t.copy())
-        fam.append(f)
-    return data, inputs, fam
+def _family_sets(groups, fam):
+    return [sorted({fam[i] for i in g}) for g in groups]
+
+
+def _four_families(found):
+    return (len(found) == 4 and all(len(f) == 1 for f in found)
+            and sorted(f[0] for f in found) == [0, 1, 2, 3])
 
 
 def _leg_cluster(acc, failures):
     """Offset-GP clustering of CLUSTER_SERIES series (first round: all
     singles and pairs, 820 lanes at n_max = 800), no device given, each lane
-    fit cut to CLUSTER_MAXITER L-BFGS steps."""
-    from gaussian_process_optimization_tpu_torch.utils.cluster import cluster
+    fit cut to CLUSTER_MAXITER L-BFGS steps: in float32 (a reading of its
+    groups; the first round's lane log likelihoods against float64 at the
+    same leaves, gated, with a control), then in float64 on the card, which
+    must find the four families (``prof_stages --cluster`` prints each
+    float32 join beside float64)."""
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.utils.cluster import (cluster, f32_effective,
+                                                                       lane_lml)
 
-    data, inputs, fam = _cluster_data()
+    data, inputs, fam = workload.cluster_data(CLUSTER_SERIES, CLUSTER_POINTS)
+    history = []
     t0 = _now()
     with _Counted(acc):
-        groups = cluster(data, inputs, maxiter=CLUSTER_MAXITER)
+        groups = cluster([d.copy() for d in data], [x.copy() for x in inputs],
+                         maxiter=CLUSTER_MAXITER, history=history)
     t1 = _now()
-    found = [sorted({fam[i] for i in g}) for g in groups]
-    print(f"# cluster: {CLUSTER_SERIES} series x {CLUSTER_POINTS} points, first round "
+    found = _family_sets(groups, fam)
+    print(f"# cluster f32: {CLUSTER_SERIES} series x {CLUSTER_POINTS} points, first round "
           f"{CLUSTER_SERIES * (CLUSTER_SERIES + 1) // 2} lanes at n_max "
-          f"{CLUSTER_SERIES * CLUSTER_POINTS}, {CLUSTER_SERIES - len(groups) + 1} rounds of "
-          f"at most {CLUSTER_MAXITER} steps: {t1 - t0:.2f} s, {len(groups)} groups, "
-          f"families per group {found}, sizes {[len(g) for g in groups]}")
-    if not (len(groups) == 4 and all(len(f) == 1 for f in found)
-            and sorted(f[0] for f in found) == [0, 1, 2, 3]):
-        failures.append(f"cluster: the groups {found} are not the four families")
+          f"{CLUSTER_SERIES * CLUSTER_POINTS}, {len(history)} rounds of at most "
+          f"{CLUSTER_MAXITER} steps: {t1 - t0:.2f} s, {len(groups)} groups, families per "
+          f"group {found}, sizes {[len(g) for g in groups]} (a reading; four families: "
+          f"{_four_families(found)})")
+    first = history[0]
+    U, items = np.stack([f[2] for f in first]), [f[1] for f in first]
+    ll32 = np.array([f[3] for f in first])
+    ll64 = lane_lml(f32_effective(U), items, dtype=torch.float64)
+    # the control: the float32 lanes with their offsets dropped
+    no_offset = U.copy()
+    no_offset[:, 3] = 0.0
+    control = lane_lml(no_offset, items, dtype=torch.float32)
+
+    def rel(a):
+        return float(np.max(np.abs(a - ll64)) / np.max(np.abs(ll64)))
+
+    CLUSTER_FITTED.parent.mkdir(exist_ok=True)
+    np.savez_compressed(CLUSTER_FITTED, U=U, ll32=ll32, ll64=ll64)
+    print(f"# cluster f32, first round's {len(first)} lane log likelihoods against float64 at "
+          f"the same leaves and noise: max |diff| / max |LL64| {rel(ll32):.3e} (limit "
+          f"{CLUSTER_LL_LIMIT:.3g}; leaves in {CLUSTER_FITTED}); the control, the same lanes "
+          f"with their offsets dropped, {rel(control):.3e} (must exceed it)")
+    if not rel(ll32) <= CLUSTER_LL_LIMIT:
+        failures.append(f"cluster: first round's float32 lane log likelihoods {rel(ll32):.3e} "
+                        f"from float64, past {CLUSTER_LL_LIMIT:.3g}")
+    if not rel(control) > CLUSTER_LL_LIMIT:
+        failures.append(f"cluster: the control (offsets dropped) reads {rel(control):.3e}, not "
+                        f"past {CLUSTER_LL_LIMIT:.3g}")
+    t2 = _now()
+    groups64 = cluster([d.copy() for d in data], [x.copy() for x in inputs],
+                       maxiter=CLUSTER_MAXITER, dtype=torch.float64,
+                       max_lanes=CLUSTER_F64_LANES)
+    t3 = _now()
+    found64 = _family_sets(groups64, fam)
+    print(f"# cluster f64 on the card: {t3 - t2:.2f} s, {len(groups64)} groups, families per "
+          f"group {found64}, sizes {[len(g) for g in groups64]}")
+    if not _four_families(found64):
+        failures.append(f"cluster: the float64 groups {found64} are not the four families")
     return t1 - t0
 
 

@@ -10,31 +10,34 @@
 // the other.
 //
 // The kernels are bound by the instruction rate, not by memory, so the profile
-// uses the card's one-instruction special functions in place of the IEEE
-// forms, whose slow paths cost about ten instructions each. What each costs
-// in accuracy (NVIDIA's CUDA C++ documentation, intrinsic functions; u = 2^-24):
+// uses the card's one-instruction special functions where they cost no bias.
+// What each costs in accuracy (NVIDIA's CUDA C++ documentation, intrinsic
+// functions; u = 2^-24):
 //   * sqrt.approx.ftz   r from r^2: relative error <= 2^-23 (2 u); sqrt(0) = 0
 //                       exactly, so the diagonal of K(X, X) stays exact.
-//   * ex2.approx.ftz    exp(a r) as 2^((a log2 e) r): 2 ulp of the result,
-//                       plus the rounding of the pre-scaled argument, which
-//                       is |arg| 2^-23 relative in the result: 2.5e-6 at
-//                       K / variance = 1e-9, less above.
-//   * lg2.approx.ftz    ratquad's log1p(r^2 / 2) as ln 2 * lg2(1 + r^2 / 2):
-//                       absolute error <= 2^-22 near 1, so K is off by
-//                       power * 1.7e-7 relative and the power gradient's
-//                       terms by 1.7e-7 |G K|.
+//   * exp_nat(x)        exp(x) as ex2.approx.ftz of t = x log2(e)_hi, times
+//                       1 + e ln 2 for the residual e = x log2(e) - t (one FMA
+//                       for the product's rounding, one for log2(e)_lo): 2 ulp
+//                       of the result, unbiased. ex2.approx of the pre-scaled
+//                       argument alone added the rounding of (c log2 e) r,
+//                       |arg| 2^-23 relative in the result, and that rounding
+//                       was not mean-zero.
+//   * log2f             ratquad's log1p(r^2 / 2) as ln 2 * log2(1 + r^2 / 2),
+//                       the IEEE form: lg2.approx's absolute error of 2^-22
+//                       near 1 biased K by power * 1.7e-7 relative.
 //   * rcp.approx.ftz    1 / r (exponential, cosine) and 1 / (1 + r^2 / 2)
 //                       (ratquad) in the backward only: 1 ulp.
 //   * .ftz              results under 1.2e-38 become 0.
-// Each error is inside the kernels' checks against their plain versions (rtol
-// 2e-5 forward, 1e-4 backward), but they are not unbiased: against a float64 K
-// on an H100 the mean error of K's entries is +6.7e-9 of the variance where the
-// plain version's is -2.9e-9 (5 x 4096 x 4096 ARD Matern52), and B2's
-// parameter gradients +2e-7 where the plain ones are -8e-8; at a fitted point
-// with cond(Ky) ~ 1e8 the float32 LML feels that bias (ROADMAP C9). The
-// exponential's comes from pre-scaling its argument by log2 e: ex2.approx of
-// t = x log2(e)_hi, corrected by the FMA residual of that product, removes it
-// (gaussian_process_optimization_tpu_torch/prof_b1_bias.py measures each form).
+// Against a float64 K on an NVIDIA H100 80GB HBM3 at 700 W (5 x 4096 x 4096
+// ARD Matern52) the mean error of K's entries is -2.9e-9 of the variance, the
+// plain version's too, and B2's d variance / d lengthscale -7.6e-8 / -5.6e-8
+// where the plain ones are -8e-8; with ex2.approx of the pre-scaled argument
+// they were +6.7e-9 and +2e-7, a bias that the float32 LML at a fitted point
+// with cond(Ky) ~ 1e8 felt (ROADMAP C9;
+// gaussian_process_optimization_tpu_torch/prof_b1_bias.py rebuilds that
+// profile and measures each form). The K build and its backward share this
+// profile: a K build and a gradient that round differently sent an SVGP's
+// Adam steps astray.
 // The cosine family keeps cosf / sinf: the one-instruction forms lose
 // absolute accuracy as r grows past pi, and r is not bounded. They are called,
 // not inlined: their range reduction is long, a kernel holds 16 entries'
@@ -59,12 +62,6 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ float lg2_approx(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ float sqrt_approx(float x) {
   float y;
   asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -75,6 +72,15 @@ __device__ __forceinline__ float rcp_approx(float x) {
   float y;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// exp(x) without the bias of rounding x log2(e): the residual of the product
+// by an FMA, log2(e)'s low part, and one FMA to apply both to the result
+__device__ __forceinline__ float exp_nat(float x) {
+  const float t = x * kLog2e;
+  const float e = fmaf(x, kLog2e, -t) + x * 1.925963033500e-8f;  // log2(e)_lo
+  const float y = ex2_approx(t);
+  return fmaf(y, e * kLn2, y);
 }
 
 static __device__ __noinline__ float cos_exact(float x) { return cosf(x); }
@@ -91,20 +97,20 @@ __device__ __forceinline__ void profile(float r2, float variance, float power, f
                                         float& dk, float& log1) {
   log1 = 0.0f;
   if (FAMILY == kRbf) {
-    k = ex2_approx((-0.5f * kLog2e) * r2);
+    k = exp_nat(-0.5f * r2);
     dk = -variance * k;
   } else if (FAMILY == kExponential || FAMILY == kOu) {
     const float r = sqrt_approx(r2);
-    k = ex2_approx(-kLog2e * r);
+    k = exp_nat(-r);
     dk = -variance * k * rcp_approx(fmaxf(r, 1e-30f));
   } else if (FAMILY == kMatern32) {
     const float r = sqrt_approx(r2);
-    const float e = ex2_approx((-kSqrt3 * kLog2e) * r);
+    const float e = exp_nat(-kSqrt3 * r);
     k = fmaf(kSqrt3, r, 1.0f) * e;
     dk = -3.0f * variance * e;
   } else if (FAMILY == kMatern52) {
     const float r = sqrt_approx(r2);
-    const float e = ex2_approx((-kSqrt5 * kLog2e) * r);
+    const float e = exp_nat(-kSqrt5 * r);
     const float lin = fmaf(kSqrt5, r, 1.0f);
     k = fmaf(5.0f / 3.0f, r2, lin) * e;
     dk = (-5.0f / 3.0f) * variance * lin * e;
@@ -114,7 +120,7 @@ __device__ __forceinline__ void profile(float r2, float variance, float power, f
     dk = r < 1e-12f ? -variance : -variance * sin_exact(r) * rcp_approx(fmaxf(r, 1e-30f));
   } else {  // ratquad
     const float base = fmaf(0.5f, r2, 1.0f);
-    const float l2 = lg2_approx(base);
+    const float l2 = log2f(base);
     k = ex2_approx(-power * l2);
     dk = -variance * power * k * rcp_approx(base);
     log1 = kLn2 * l2;

@@ -104,8 +104,8 @@ class GPClassification:
     def site_fixed_lml(self, tau, nu):
         """The EP evidence at fixed sites, differentiable in the kernel."""
         K = self.kern.K(self.X)
-        mu, Sigma, L, _ = _dense_posterior_from_sites(K, tau, nu)
-        return _dense_ep_lml(Bernoulli(), self.Y, K, tau, nu, mu, Sigma, L, 1.0)
+        mu, sigma2, L, _ = _dense_posterior_from_sites(K, tau, nu)
+        return _dense_ep_lml(Bernoulli(), self.Y, tau, nu, mu, sigma2, L, 1.0)
 
     def predict_latent(self, Xnew, posterior=None):
         post = posterior if posterior is not None else self.inference()

@@ -11,6 +11,10 @@ and the second evaluates W, L and a at a differentiable mode, so the log
 determinant and the quadratic term get the dW/df chain (one step leaves a
 first-order hole).
 
+B = I + W^1/2 K W^1/2 is factored in float64 and its factor rounded to K's
+dtype (``linalg.jitchol_f64``), as dense EP factors its B: the float32 Newton
+loop otherwise rounds B's trailing pivots, ~1 under a diagonal of W_ii K_ii.
+
 ``K`` may carry a lane axis (the Fitter's restarts): each lane iterates until
 its own step falls below the tolerance and is then held, as each lane of the
 reference's vmapped ``while_loop`` stops on its own condition.
@@ -59,7 +63,7 @@ def laplace_inference(K, y, likelihood: Likelihood, maxiter=50, tol=1e-9) -> Lap
     def newton(f):
         W = torch.clamp(-likelihood.d2logpdf_df2(f, y), min=1e-12)
         sW = torch.sqrt(W)
-        L, _, _ = linalg.jitchol(eye + sW[..., :, None] * K * sW[..., None, :])
+        L = linalg.jitchol_f64(eye + sW[..., :, None] * K * sW[..., None, :])
         b = W * f + likelihood.dlogpdf_df(f, y)
         tmp = linalg.cho_solve(L, (sW * _mv(K, b))[..., None])[..., 0]
         a = b - sW * tmp

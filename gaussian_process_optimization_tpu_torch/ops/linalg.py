@@ -204,6 +204,15 @@ def jitchol(A: torch.Tensor, k_start=None, greedy: bool = False):
     return L, jitter, ok
 
 
+def jitchol_f64(A: torch.Tensor) -> torch.Tensor:
+    """The lower factor of :func:`jitchol` computed in float64 and rounded to
+    ``A``'s dtype (differentiable through both casts): for B = I + W^1/2 K
+    W^1/2 of EP and Laplace, whose diagonal reaches W_ii K_ii ~ 1e3-1e4 while
+    its trailing pivots are ~1, so that a float32 factorization loses 3-4
+    digits in each."""
+    return jitchol(A.double())[0].to(A.dtype)
+
+
 def _expand_rhs(L, B):
     batch = torch.broadcast_shapes(L.shape[:-2], B.shape[:-2])
     return L.expand(batch + L.shape[-2:]), B.expand(batch + B.shape[-2:])

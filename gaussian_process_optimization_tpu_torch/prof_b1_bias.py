@@ -1,5 +1,5 @@
 """Which step of the covariance kernels' radial profile biases their float32
-results, and what a repair does downstream (ROADMAP C9).
+results, and what its repair does downstream (ROADMAP C9).
 
     python -m gaussian_process_optimization_tpu_torch.prof_b1_bias [--skip-fits] [--svgp] [--ep] [--phase12]
 
@@ -8,17 +8,17 @@ change to the profile of ``csrc/stationary_family.cuh`` that B1 and B2 share
 (the package itself is not touched), builds each into its own library and
 loads it in turn:
 
-- ``as is``: the sources as they stand (``ex2.approx`` of the pre-scaled
-  argument x log2 e, ``sqrt.approx``, ratquad's ``lg2.approx``);
-- ``exp2f``, ``sqrtf``, ``log2f``: one approximate intrinsic swapped for its
-  IEEE form;
+- ``as is``: the sources as they stand (``exp_nat``: ``ex2.approx`` of t = x
+  log2(e)_hi corrected by the FMA residual of that product, ``sqrt.approx``,
+  ratquad's IEEE ``log2f``);
+- ``before C9``: the profile before its repair (``ex2.approx`` of the
+  pre-scaled argument x log2 e, ratquad's ``lg2.approx``), and with one of its
+  approximate intrinsics swapped for the IEEE form (``exp2f``, ``sqrtf``);
+- ``pre-scaled exponential`` and ``lg2.approx``: one half of the repair undone;
 - ``expf``: the exponentials as ``expf`` of the natural-log argument (the
-  plain version's arithmetic);
-- ``compensated``: the exponentials as ``ex2.approx`` of t = x log2(e)_hi, the
-  residual of that product by an FMA, and one more FMA to correct the result;
-- ``sqrtf + expf``, ``sqrtf + compensated``;
-- ``repair``: ``compensated`` and ``log2f`` in both kernels;
-- ``repair, forward only``: ``repair`` in the K build, ``as is`` in B2.
+  plain version's arithmetic); ``sqrtf``; ``sqrtf + expf``;
+- ``before C9 in B2 only``: the repaired profile in the K build, the old one in
+  its backward.
 
 For each it prints the mean signed and the mean absolute error of K against a
 float64 K built on the card from the same float32 inputs, relative to the
@@ -31,10 +31,11 @@ the models' own route with the kernels off (r^2 by a matrix product). Unless
 the Mauna Loa composition of phase 10's leg 2, and prints for each variant the
 float32 -LML's error against float64 at the fitted point, and warpedGP's K
 errors there. ``--svgp`` also fits phase 9's SVGP (300 Adam steps) through the
-plain route, ``as is``, both ``repair`` variants and float64; ``--ep`` runs
-phase 9's dense EP rounds through the plain route, ``as is``, ``repair`` (also
-with some of its linear algebra elsewhere) and float64; ``--phase12`` runs
-phase 12's clustering and sharded BO legs through ``as is`` and ``repair``.
+plain route, ``as is``, ``before C9``, ``before C9 in B2 only`` and float64;
+``--ep`` runs phase 9's dense EP rounds through the plain route, ``as is``
+(also with some of its linear algebra elsewhere), ``before C9`` and float64;
+``--phase12`` runs phase 12's clustering and sharded BO legs through ``as
+is`` and ``before C9``.
 """
 from __future__ import annotations
 
@@ -57,84 +58,103 @@ from .utils.tree import tree_map
 _ASM = {
     "exp2f": r'asm\("ex2\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(x\)\);',
     "sqrtf": r'asm\("sqrt\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(x\)\);',
-    "log2f": r'asm\("lg2\.approx\.ftz\.f32 %0, %1;" : "=f"\(y\) : "f"\(x\)\);',
 }
-# the profile's exponentials, ex2.approx of a pre-scaled argument -> exp_nat(x)
+# the profile's exponentials -> ex2.approx of the pre-scaled argument (before C9)
 _PRESCALED = {
-    "ex2_approx((-0.5f * kLog2e) * r2)": "exp_nat(-0.5f * r2)",
-    "ex2_approx(-kLog2e * r)": "exp_nat(-r)",
-    "ex2_approx((-kSqrt3 * kLog2e) * r)": "exp_nat(-kSqrt3 * r)",
-    "ex2_approx((-kSqrt5 * kLog2e) * r)": "exp_nat(-kSqrt5 * r)",
+    "exp_nat(-0.5f * r2)": "ex2_approx((-0.5f * kLog2e) * r2)",
+    "exp_nat(-r)": "ex2_approx(-kLog2e * r)",
+    "exp_nat(-kSqrt3 * r)": "ex2_approx((-kSqrt3 * kLog2e) * r)",
+    "exp_nat(-kSqrt5 * r)": "ex2_approx((-kSqrt5 * kLog2e) * r)",
 }
-_EXP_NAT = {
-    "expf": "__device__ __forceinline__ float exp_nat(float x) { return expf(x); }\n",
-    "compensated": (
-        "__device__ __forceinline__ float exp_nat(float x) {\n"
-        "  const float t = x * kLog2e;\n"
-        "  const float e = fmaf(x, kLog2e, -t) + x * 1.925963033500e-8f;  // log2(e)_lo\n"
-        "  const float y = ex2_approx(t);\n"
-        "  return fmaf(y, e * kLn2, y);\n"
-        "}\n"),
-}
+_EXP_NAT = re.compile(r"__device__ __forceinline__ float exp_nat\(float x\) \{\n.*?\n\}\n",
+                      re.S)
+_EXPF = "__device__ __forceinline__ float exp_nat(float x) { return expf(x); }\n"
+_LG2 = ("__device__ __forceinline__ float lg2_approx(float x) {\n"
+        "  float y;\n"
+        '  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n'
+        "  return y;\n"
+        "}\n")
 _ANCHOR = "// From r2 = r^2 >= 0:"
+_PROFILE = "template <int FAMILY>\n__device__ __forceinline__ void profile("
+_END = "}  // namespace gpo"
+BEFORE = ("prescaled", "lg2")
 VARIANTS = {
     "as is": (),
-    "exp2f": ("exp2f",),
-    "sqrtf": ("sqrtf",),
-    "log2f": ("log2f",),
+    "before C9": BEFORE,
+    "before C9, exp2f": BEFORE + ("exp2f",),
+    "before C9, sqrtf": BEFORE + ("sqrtf",),
+    "pre-scaled exponential": ("prescaled",),
+    "lg2.approx": ("lg2",),
     "expf": ("expf",),
-    "compensated": ("compensated",),
+    "sqrtf": ("sqrtf",),
     "sqrtf + expf": ("sqrtf", "expf"),
-    "sqrtf + compensated": ("sqrtf", "compensated"),
-    "repair": ("compensated", "log2f"),
-    "repair, forward only": ("forward only",),
+    "before C9 in B2 only": ("backward before",),
 }
 _FORWARD_CALL = "profile<FAMILY>(r2[i][c] * scale, variance"
 
 
+def _undo_repair(text: str, changes) -> str:
+    """The profile code in ``text`` with the pre-scaled exponential
+    ("prescaled") and / or ratquad's lg2.approx ("lg2") of before C9."""
+    if "prescaled" in changes:
+        for new, old in _PRESCALED.items():
+            assert text.count(new) == 1, new
+            text = text.replace(new, old)
+    if "lg2" in changes:
+        assert text.count("log2f(base)") == 1
+        text = text.replace("log2f(base)", "lg2_approx(base)")
+    return text
+
+
 def _patched(text: str, changes) -> str:
+    """``stationary_family.cuh``'s text with ``changes`` applied."""
+    if "lg2" in changes or "backward before" in changes:
+        assert text.count(_ANCHOR) == 1
+        text = text.replace(_ANCHOR, _LG2 + "\n" + _ANCHOR)
+    text = _undo_repair(text, changes)
     for c in changes:
         if c in _ASM:
             text, n = re.subn(_ASM[c], f"y = {c}(x);", text)
             assert n == 1, c
-        else:
-            for old, new in _PRESCALED.items():
-                assert text.count(old) == 1, old
-                text = text.replace(old, new)
-            text = text.replace(_ANCHOR, _EXP_NAT[c] + "\n" + _ANCHOR)
+    if "expf" in changes:
+        text, n = _EXP_NAT.subn(_EXPF, text)
+        assert n == 1
+    if "backward before" in changes:
+        start, end = text.index(_PROFILE), text.index(_END)
+        copy = _undo_repair(text[start:end], BEFORE).replace("void profile(",
+                                                              "void profile_before(")
+        text = text[:end] + copy + text[end:]
     return text
 
 
-def _forward_only(source: str) -> str:
-    """``source`` with a ``profile_forward`` beside ``profile``: the repaired
-    profile (compensated exponential, IEEE log2f) for the K build alone."""
-    start = source.index("template <int FAMILY>\n__device__ __forceinline__ void profile(")
-    end = source.index("}  // namespace gpo")
-    copy = source[start:end].replace("void profile(", "void profile_forward(")
-    for old, new in _PRESCALED.items():
-        copy = copy.replace(old, new)
-    copy = copy.replace("lg2_approx(base)", "log2f(base)")
-    return source[:end] + _EXP_NAT["compensated"] + "\n" + copy + source[end:]
+def variant_sources(header: str, kernels: str) -> dict:
+    """``{variant: (stationary_family.cuh, stationary_k_kernels.cuh)}``, the
+    texts of each variant built from the two files' texts ``header`` and
+    ``kernels``; raises ``AssertionError`` where a pattern no longer matches."""
+    out = {}
+    for name, changes in VARIANTS.items():
+        k = kernels
+        if "backward before" in changes:
+            # B2's calls take the old profile, B1's keeps the repaired one
+            assert k.count(_FORWARD_CALL) == 1 and k.count("profile<FAMILY>(") == 3
+            k = k.replace("profile<FAMILY>(", "profile_before<FAMILY>(").replace(
+                _FORWARD_CALL.replace("profile<", "profile_before<"), _FORWARD_CALL)
+        out[name] = (_patched(header, changes), k)
+    return out
 
 
 def _variant_dirs() -> dict:
     root = _build.BUILD_DIR / "variants"
+    sources = variant_sources((_build.SRC_DIR / "stationary_family.cuh").read_text(),
+                              (_build.SRC_DIR / "stationary_k_kernels.cuh").read_text())
     out = {}
-    for i, (name, changes) in enumerate(VARIANTS.items()):
+    for i, (name, (header, kernels)) in enumerate(sources.items()):
         d = root / f"v{i}"
         if d.exists():
             shutil.rmtree(d)
         shutil.copytree(_build.SRC_DIR, d)
-        header = d / "stationary_family.cuh"
-        if "forward only" in changes:
-            header.write_text(_forward_only(header.read_text()))
-            kernels = d / "stationary_k_kernels.cuh"
-            k = kernels.read_text()
-            assert k.count(_FORWARD_CALL) == 1
-            kernels.write_text(k.replace(_FORWARD_CALL,
-                                         _FORWARD_CALL.replace("profile<", "profile_forward<")))
-        else:
-            header.write_text(_patched(header.read_text(), changes))
+        (d / "stationary_family.cuh").write_text(header)
+        (d / "stationary_k_kernels.cuh").write_text(kernels)
         out[name] = d
     return out
 
@@ -186,7 +206,7 @@ def _lml(m) -> float:
 
 def _svgp(dirs, source):
     """Phase 9's SVGP leg (300 Adam steps) through the plain route, ``as is``,
-    both ``repair`` variants and float64: -ELBO every 50 steps and the largest prediction error at its
+    ``before C9``, ``before C9 in B2 only`` and float64: -ELBO every 50 steps and the largest prediction error at its
     5 points (limit 0.05 in chip_smoke.py)."""
     import numpy as np
 
@@ -194,7 +214,7 @@ def _svgp(dirs, source):
     Xt = np.random.default_rng(0).uniform(-3, 3, size=(5, 2))
     runs = [("plain route", source, False, None)] + [
         (name, d, "auto", None) for name, d in dirs.items()
-        if name in ("as is", "repair", "repair, forward only")]
+        if name in ("as is", "before C9", "before C9 in B2 only")]
     runs.append(("float64", source, "auto", torch.float64))
     for name, d, route, dtype in runs:
         _use(d)
@@ -217,7 +237,7 @@ def _svgp(dirs, source):
 
 def _ep(dirs, source):
     """Phase 9's dense EP leg (N = 4096: EP to convergence, then two alternated
-    rounds of 30 steps) through the plain route, ``as is``, ``repair`` (also
+    rounds of 30 steps) through the plain route, ``before C9``, ``as is`` (also
     with the ladder's Cholesky and the triangular solves on the host's CPU, with
     the port's blocked Cholesky and B4, and with torch's MAGMA backend for the
     factorization) and float64: the evidence after each round (chip_smoke.py
@@ -238,15 +258,15 @@ def _ep(dirs, source):
 
     X, Y = workload.bench_data()
     labels = workload.classification_labels(Y)
-    repair = dirs["repair"]
+    repair = dirs["as is"]
     runs = [("plain route", source, False, None, contextlib.nullcontext),
-            ("as is", dirs["as is"], "auto", None, contextlib.nullcontext),
-            ("repair", repair, "auto", None, contextlib.nullcontext),
-            ("repair, Cholesky + solves on the host", repair, "auto", None,
+            ("before C9", dirs["before C9"], "auto", None, contextlib.nullcontext),
+            ("as is", repair, "auto", None, contextlib.nullcontext),
+            ("as is, Cholesky + solves on the host", repair, "auto", None,
              lambda: on_host(("chol", "solves"))),
-            ("repair, blocked Cholesky with B4", repair, "auto", None,
+            ("as is, blocked Cholesky with B4", repair, "auto", None,
              lambda: on_host(("blocks",))),
-            ("repair, MAGMA factorization", repair, "auto", None, magma),
+            ("as is, MAGMA factorization", repair, "auto", None, magma),
             ("float64", source, "auto", torch.float64, contextlib.nullcontext)]
     for name, d, route, dtype, context in runs:
         _use(d)
@@ -271,8 +291,8 @@ def _ep(dirs, source):
 
 def _phase12(dirs, source):
     """``chip_smoke.py`` phase 12's clustering and its sharded fit with the
-    BayesianOptimization(mesh=...) suggestion, through ``as is`` and
-    ``repair`` (the plain route does not fit the clustering's 820 lanes in
+    BayesianOptimization(mesh=...) suggestion, through ``before C9`` and
+    ``as is`` (the plain route does not fit the clustering's 820 lanes in
     80 GB): the lines those legs print, and the checks they would fail."""
     import importlib.util
 
@@ -281,7 +301,7 @@ def _phase12(dirs, source):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     dev = torch.device("cuda", 0)
-    for name in ("as is", "repair"):
+    for name in ("before C9", "as is"):
         _use(dirs[name])
         failures = []
         print(f"# phase 12 legs, {name}:", flush=True)

@@ -14,7 +14,10 @@ CPU:
 - the jitter-ladder rung of B = I + W^1/2 K W^1/2 at the float32 mode;
 - the float32 mode's largest distance from the float64 one;
 - the three terms of the -LML (-sum log p(y|f), log det(B) / 2 and the
-  quadratic a^T f / 2) at the float32 and the float64 mode.
+  quadratic a^T f / 2) at the float32 and the float64 mode;
+- on a card, the float32 -LML's error with each stage on the host
+  (``prof_stages.readings``: the K build, the factorization of B, now in
+  float64, and the triangular solves).
 """
 from __future__ import annotations
 
@@ -85,6 +88,17 @@ def main():
                   f"{CAPS}: {' '.join(f'{e:.2e}' for e in errs)}; at the cap of 50: rung "
                   f"{rung}, max |mode f32 - f64| {gap:.3f}, terms (-log p, logdet/2, quad) "
                   f"{tuple(round(t, 4) for t in terms(post, y, lik))}")
+        if device.startswith("cuda"):
+            from . import prof_stages
+
+            def measure():
+                with torch.no_grad():
+                    lml = -float(laplace_inference(K_of(torch.float32, device, "auto"), y,
+                                                   lik).lml)
+                return {"rel": abs(lml - lml64) / lml64}
+
+            print(f"# prof_laplace, {device}, stage swaps: " + prof_stages.format_readings(
+                prof_stages.readings(measure), ("rel",)))
 
 
 if __name__ == "__main__":

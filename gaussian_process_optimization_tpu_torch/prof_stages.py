@@ -13,11 +13,19 @@ back (autograd runs through the copies), everything else left on the card:
   own ``blocked_cholesky`` with B4's diagonal blocks (``cuda_chol_blocks``),
   on the card.
 
-``chip_smoke.py`` phases 9-11 call :func:`readings` at their fitted points.
+``chip_smoke.py`` phases 10-11 and ``prof_laplace`` call :func:`readings`
+at their fitted points.
 ``python -m gaussian_process_optimization_tpu_torch.prof_stages`` prints the
 backward error and the log-determinant error of each float32 factorization
 route against float64 on a Matern52 Gram at two noise levels, and dense EP's
-float32 evidence at a card-fitted point with each stage on the host.
+float32 evidence at phase 9's fitted point with each stage on the host,
+through each reading of Sigma (``EP_FORMS``) and, split into its pieces, with
+each factor route (``ep_pieces``). ``--sweep PATH`` prints phase 12's sweep
+-EI at the surrogate stored in PATH, float32 sharded against unsharded and
+each against float64, with the stages of L^-1 Kx swapped (:func:`mesh_sweep`);
+``--cluster PATH`` prints each join of phase 12's float32 clustering beside
+float64 and saves the joins of two families to PATH
+(:func:`cluster_readings`).
 Within :func:`recording_rungs`, every call of the ladder appends its lanes'
 rungs, so a reading can name the rung each device settled on.
 """
@@ -221,73 +229,356 @@ def _elementwise_and_gemm(dev):
           f"max |C64| {float((C - C64).abs().max() / C64.abs().max()):.3e}")
 
 
-# dense EP's hyperparameters after two float32 alternated rounds on an H100
-# (chip_smoke.py phase 9's leg, RBF, N = 4096, with prof_b1_bias.py's
-# ``repair`` profile in the kernels)
-EP_POINT = {"variance": 455.782, "lengthscale": 3.44876}
+# dense EP's readings of Sigma = K - V^T V: the Gaussian term's nu^T Sigma nu
+# ("nu . mu" as the port has it, "Sigma @ nu" as the JAX package has it),
+# diag Sigma ("tau": (1 - ||L^-1 e_i||^2) / tau_i where tau_i K_ii > 1, as the
+# port has it; "K - V^T V": the product's diagonal), and mu = K alpha's alpha
+# ("solve": S^1/2 B^-1 S^-1/2 nu as the port has it; "nu - ...": nu - S^1/2
+# B^-1 S^1/2 K nu as the JAX package has it)
+EP_FORMS = (("port", "nu . mu", "tau", "solve"),
+            ("reference's alpha", "nu . mu", "tau", "nu - ..."),
+            ("reference's quadratic", "Sigma @ nu", "tau", "solve"),
+            ("reference's diag Sigma", "nu . mu", "K - V^T V", "solve"),
+            ("reference", "Sigma @ nu", "K - V^T V", "nu - ..."))
+
+
+def ep_evidence(K, y, quad="nu . mu", diag="tau", alpha="solve", max_sweeps=60):
+    """Dense parallel EP from zero sites on ``K`` with probit sites (the
+    sweeps and evidence of ``models/ep.ep_inference``), with nu^T Sigma nu
+    read as ``quad``, diag Sigma as ``diag`` and alpha as ``alpha`` in the
+    sweeps and the evidence (:data:`EP_FORMS`). Returns (evidence, sweeps)."""
+    from .models import ep
+    from .models.likelihoods import Bernoulli
+
+    lik, y = Bernoulli(), y.reshape(-1)
+
+    def posterior(tau, nu):
+        mu, sigma2, L, Sigma = ep._dense_posterior_from_sites(K, tau, nu, full=True)
+        if alpha == "nu - ...":
+            sW = torch.sqrt(torch.clamp(tau, min=ep._TAU_EPS))
+            mu = K @ (nu - sW * linalg.cho_solve(L, (sW * (K @ nu))[:, None])[:, 0])
+        return mu, (torch.diagonal(Sigma) if diag == "K - V^T V" else sigma2), L, Sigma
+
+    def sweep(tau, nu):
+        mu, sigma2, _, _ = posterior(tau, nu)
+        d_tau, d_nu, _, _, _ = ep._site_deltas(lik, y, tau, nu, mu, sigma2, 1.0, 0.5)
+        return torch.clamp(tau + d_tau, min=ep._TAU_EPS), nu + d_nu
+
+    with torch.no_grad():
+        tau, nu, sweeps, _ = ep._run_sweeps(sweep, K.shape[-1], K, max_sweeps, 1e-6)
+        mu, sigma2, L, Sigma = posterior(tau, nu)
+        lml = ep._dense_ep_lml(lik, y, tau, nu, mu, sigma2, L, 1.0)
+        if quad == "Sigma @ nu":
+            lml = lml + 0.5 * (torch.sum(nu * (Sigma @ nu)) - torch.sum(nu * mu))
+    return float(lml), sweeps
+
+
+def ep_forms(kern, X, y):
+    """``{form: (float32 evidence, its rel error against float64, sweeps)}``
+    over :data:`EP_FORMS` at the RBF ``kern`` on ``X``, EP from zero sites in
+    each dtype; the float64 evidence (the forms agree there) under
+    "float64"."""
+    with torch.no_grad():
+        K32 = kern.K(X)
+        K64 = tree_map(lambda t: t.double(), kern).K(X.double())
+    e64, _ = ep_evidence(K64, y.double())
+    out = {"float64": (e64, 0.0, 0)}
+    for label, *form in EP_FORMS:
+        e, sweeps = ep_evidence(K32, y.float(), *form)
+        out[label] = (e, abs(e - e64) / abs(e64), sweeps)
+    return out
 
 
 def _ep_point():
-    """Dense EP's float32 evidence at EP_POINT against float64, with each stage
-    and pair of stages on the host (EP to convergence, fresh sites)."""
+    """Dense EP fitted as ``chip_smoke.py`` phase 9's leg fits it (EP, then two
+    alternated rounds of 30 steps, float32 on the card); at the fitted point,
+    the float32 evidence against float64 with each stage and pair of stages
+    on the host (EP to convergence, fresh sites), through each reading of
+    Sigma, and split into its pieces for each factor route."""
     from . import workload
-    from .kernels.stationary import RBF
     from .models.classification import GPClassification
 
     X, Y = workload.bench_data()
-    labels = workload.classification_labels(Y)
+    model, _ = GPClassification.create(X, workload.classification_labels(Y)).optimize(
+        rounds=2, maxiter=30)
+    point = (f"variance {float(model.kern.variance):.6g}, lengthscale "
+             f"{float(model.kern.lengthscale):.6g}")
+    with torch.no_grad():
+        e64 = float(tree_map(lambda t: t.double(), model).inference().lml)
 
-    def evidence(dtype, device="cuda"):
-        kern = RBF.create(X.shape[1], **EP_POINT, dtype=dtype, device=device)
-        post = GPClassification.create(X, labels, kernel=kern, dtype=dtype,
-                                       device=device).inference()
-        return float(post.lml), int(post.sweeps)
+    def rel(m):
+        with torch.no_grad():
+            post = m.inference()
+        return {"rel": abs(float(post.lml) - e64) / abs(e64), "evidence": float(post.lml),
+                "sweeps": int(post.sweeps)}
 
-    e64, _ = evidence(torch.float64)
+    rows = readings(lambda: rel(model)) + readings(
+        lambda: rel(tree_map(lambda t: t.cpu(), model)), (("CPU entirely", ()),))
+    print(f"# EP at the fitted point ({point}), float32 evidence against float64 "
+          f"({e64:.4f}), stage swaps: " + format_readings(rows, ("rel", "evidence", "sweeps")))
+    print("# EP at the fitted point, forms of Sigma: " + format_forms(
+        ep_forms(model.kern, model.X, model.Y)))
+    for route, d in ep_pieces(model.kern, model.X, model.Y).items():
+        print(f"# EP at the fitted point, pieces of the evidence at float64's sites, factor by "
+              f"{route}: " + "; ".join(f"{k} {v:+.3e}" for k, v in d.items()))
 
-    def rel(device="cuda"):
-        e, sweeps = evidence(torch.float32, device)
-        return {"rel": abs(e - e64) / abs(e64), "evidence": e, "sweeps": sweeps}
 
-    rows = readings(rel) + readings(lambda: rel("cpu"), (("CPU entirely", ()),))
-    for label, form in (("Sigma's product V^T V on the host", "host"),
-                        ("diag Sigma as diag K - sum V^2", "sum")):
-        with _sigma_form(form), recording_rungs() as rungs:
-            rows.append((f"card, {label}", rel(), rungs))
-    print(f"# EP at {EP_POINT}, float32 evidence against float64 ({e64:.4f}), stage swaps: "
-          + format_readings(rows, ("rel", "evidence", "sweeps")))
+def ep_pieces(kern, X, y):
+    """Dense EP's float32 evidence at float64 EP's converged sites for the RBF
+    ``kern`` on ``X``, with B = I + S^1/2 K S^1/2 factored by each route: in
+    float32 by ``cholesky_ex`` on the card, by the host's LAPACK, by the
+    port's blocked Cholesky with B4; in float64, rounded to float32 (what
+    ``models/ep`` does). Returns ``{route: {piece: error}}``: each of -1/2
+    log|B|, 1/2 nu . mu and the rest (Z_tilde's cavities) against float64's,
+    over |evidence|, and the mean signed relative error of diag Sigma and of
+    mu."""
+    from .models import ep
+    from .models.likelihoods import Bernoulli
+
+    lik = Bernoulli()
+    kern64 = tree_map(lambda t: t.double(), kern)
+    with torch.no_grad():
+        K64 = kern64.K(X.double())
+        post = ep.ep_inference(K64, y.double(), lik)
+        K32 = kern.K(X)
+    tau, nu = post.tau_site.float(), post.nu_site.float()
+    sW = torch.sqrt(torch.clamp(tau, min=ep._TAU_EPS))
+    B = ep._eye(K32.shape[-1], K32) + sW[:, None] * K32 * sW[None, :]
+
+    def pieces(K, tau, nu, L):
+        with torch.no_grad():
+            mu, sigma2, L, _ = ep._posterior_from_factor(K, tau, nu, L)
+            lml = ep._dense_ep_lml(lik, y.to(K.dtype), tau, nu, mu, sigma2, L, 1.0)
+            ld = -0.5 * linalg.logdet_from_chol(L)
+            q = 0.5 * torch.sum(nu * mu)
+        return ([float(v) for v in (ld, q, lml - ld - q, lml)], sigma2.double(), mu.double())
+
+    ref, s64, m64 = pieces(K64, post.tau_site, post.nu_site,
+                           ep._dense_posterior_from_sites(K64, post.tau_site, post.nu_site)[2])
+    factors = {
+        "cholesky_ex f32": lambda: cuda_linalg.cholesky_plain(B),
+        "host LAPACK f32": lambda: cuda_linalg.cholesky_plain(B.cpu()).to(B.device),
+        "blocked with B4 f32": lambda: linalg.blocked_cholesky(B),
+        "float64, rounded (the port)": lambda: cuda_linalg.cholesky_plain(B.double()).float()}
+    out = {}
+    for route, factor in factors.items():
+        with torch.no_grad():
+            L = factor()
+        got, s32, m32 = pieces(K32, tau, nu, L)
+        out[route] = {k: (g - r) / abs(ref[3]) for k, g, r in zip(
+            ("-log|B| / 2", "nu . mu / 2", "rest", "evidence"), got, ref)}
+        out[route]["diag Sigma"] = float(((s32 - s64) / s64).mean())
+        out[route]["mu"] = float(((m32 - m64) / m64.abs().max()).mean())
+    return out
+
+
+def format_forms(forms):
+    return "; ".join(f"{k} {e:.4f} (rel {r:.3e}, {n} sweeps)" for k, (e, r, n) in forms.items())
+
+
+# the acquisition sweep's float32 -EI (``chip_smoke.py`` phase 12) at a
+# stored fitted surrogate, with the stages of L^-1 Kx swapped
+SWEEP_CONFIGS = CONFIGS[:4] + (
+    ("plain K and triangular inverse", ("plain",)),
+    ("L^-1 Kx by a triangular solve, no Li", ("no Li",)),
+    ("Li Kx and var in float64 from float32 Li, Kx", ("gemm64",)))
 
 
 @contextlib.contextmanager
-def _sigma_form(form):
-    """Dense EP's posterior with Sigma = K - V^T V formed otherwise: the
-    product on the host ("host"), or its diagonal replaced by diag K - the
-    column sums of V^2 ("sum"), the rest as ``models/ep`` has it."""
-    from .models import ep
+def _sweep_stage(stages):
+    """The stages of :data:`SWEEP_CONFIGS` that :func:`on_host` lacks."""
+    from .models.gp import GPRegression
 
-    original = ep._dense_posterior_from_sites
-
-    def posterior(K, tau, nu):
-        n = K.shape[-1]
-        sW = torch.sqrt(torch.clamp(tau, min=ep._TAU_EPS))
-        L, _, _ = linalg.jitchol(ep._eye(n, K) + sW[..., :, None] * K * sW[..., None, :])
-        V = linalg.solve_lower(L, sW[..., :, None] * K)
-        if form == "host":
-            Sigma = K - (V.mT.cpu() @ V.cpu()).to(K.device)
-        else:
-            Sigma = K - V.mT @ V
-            Sigma.diagonal(dim1=-2, dim2=-1).copy_(
-                torch.diagonal(K, dim1=-2, dim2=-1) - torch.sum(V * V, dim=-2))
-        aux = linalg.cho_solve(L, (sW * ep._mv(K, nu))[..., None])[..., 0]
-        alpha = nu - sW * aux
-        return ep._mv(K, alpha), Sigma, L, alpha
-
-    ep._dense_posterior_from_sites = posterior
+    half = GPRegression._half
+    old = config.use_cuda_kernels, config.cuda_tri_inv
     try:
-        yield
+        if "plain" in stages:
+            config.use_cuda_kernels, config.cuda_tri_inv = False, False
+        if "gemm64" in stages:
+            GPRegression._half = lambda self, post, Kx: post.Li.double() @ Kx.double()
+        with on_host(tuple(s for s in stages if s in STAGES)):
+            yield
     finally:
-        ep._dense_posterior_from_sites = original
+        config.use_cuda_kernels, config.cuda_tri_inv = old
+        GPRegression._half = half
+
+
+def mesh_sweep(leaves, n_shards=4, points=1000, seed=0, device=None):
+    """-EI at ``points`` seeded points in [-2, 2]^D at the fitted surrogate
+    ``leaves`` (``convert.gp_from_leaves``), float32 with the rows split over
+    ``n_shards`` shards of one device and unsplit, each against float64 at
+    the same leaves (the noise float32 evaluates): ``[(label, {reading:
+    max |a - b| / max |b|}, rungs)]`` per configuration of
+    :data:`SWEEP_CONFIGS` (the CPU entirely last), and the worst point's
+    values on the device as is."""
+    import numpy as np
+
+    from . import convert
+    from .bo.acquisitions import neg_ei
+    from .models.bo_models import masked_fmin
+    from .parallel import sharded
+
+    device = torch.device(device or "cuda")
+    leaves = {k: v for k, v in leaves.items() if k != "x"}
+    gp32 = convert.gp_from_leaves(leaves, dtype=torch.float32, device=device)
+    floor = config.f32_noise_floor - config.noise_jitter
+    gp64 = convert.gp_from_leaves(leaves, dtype=torch.float64, device=device)
+    gp64 = type(gp64)(**{**{f: getattr(gp64, f) for f in gp64.__dataclass_fields__},
+                         "likelihood_variance": torch.clamp(gp64.likelihood_variance,
+                                                            min=floor)})
+    P = np.random.default_rng(seed).uniform(-2.0, 2.0, size=(points, gp32.X.shape[-1]))
+
+    def neg(gp, post, pts, mesh=None):
+        args = (gp, post, masked_fmin(gp, post))
+        if mesh is None:
+            return neg_ei(*args, pts)
+        return sharded.make_sharded_sweep(lambda a, A: neg_ei(*a, A), mesh)(args, pts)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    with torch.no_grad():
+        post64 = gp64.inference(precompute_inverse=True)
+        pts64 = torch.as_tensor(P, dtype=torch.float64, device=device)
+        e64 = neg(gp64, post64, pts64)
+        e64s = neg(gp64, post64, pts64, sharded.make_mesh(n_shards, device=str(device)))
+
+    def measure(gp, stages=()):
+        mesh = sharded.make_mesh(n_shards, device=str(gp.X.device))
+        pts = torch.as_tensor(P, dtype=torch.float32, device=gp.X.device)
+        with _sweep_stage(stages), torch.no_grad():
+            post = gp.inference(precompute_inverse="no Li" not in stages)
+            su, ss = neg(gp, post, pts), neg(gp, post, pts, mesh)
+        ref = e64.to(su.device)
+        return {"sharded vs unsharded": rel(ss, su), "unsharded vs f64": rel(su, ref),
+                "sharded vs f64": rel(ss, ref), "_values": (su, ss)}
+
+    rows = []
+    for label, stages in SWEEP_CONFIGS:
+        with recording_rungs() as rungs:
+            rows.append((label, measure(gp32, stages), rungs))
+    with recording_rungs() as rungs:
+        rows.append(("CPU entirely", measure(tree_map(lambda t: t.cpu(), gp32)), rungs))
+    su, ss = rows[0][1]["_values"]
+    i = int((ss.double() - su.double()).abs().argmax())
+    with torch.no_grad():
+        pt = torch.as_tensor(P[i:i + 1], device=device)
+        m64, v64 = gp64.predict(pt, posterior=gp64.inference())
+        m32, v32 = gp32.predict(pt.float(), posterior=gp32.inference(precompute_inverse=True))
+        kdiag = float(gp64.kern.Kdiag(pt)[0])
+    worst = (f"float64 sharded vs unsharded {rel(e64s, e64):.3e}; point {i}: -EI unsharded {float(su[i]):.6g}, sharded {float(ss[i]):.6g}, "
+             f"float64 {float(e64[i]):.6g} (max |-EI64| {float(e64.abs().max()):.6g}); "
+             f"variance f32 {float(v32):.6g} vs f64 {float(v64):.6g} of k(x, x) {kdiag:.6g}; "
+             f"mean f32 {float(m32):.6g} vs f64 {float(m64):.6g}")
+    return rows, worst
+
+
+def main_sweep(path):
+    """:func:`mesh_sweep` at the surrogate stored in ``path``, printed."""
+    import numpy as np
+
+    rows, worst = mesh_sweep(dict(np.load(path)))
+    print(f"# the sweep's -EI at {path}, float32: "
+          + format_readings(rows, ("sharded vs unsharded", "unsharded vs f64",
+                                   "sharded vs f64")))
+    print(f"# the sweep's widest sharded vs unsharded gap on the card, {worst}")
+
+
+def refit(items, maxiter, dtype=None, device=None, n_max=None):
+    """Each ``(X, Y, sel)`` of ``items`` fitted as ``utils/cluster.cluster``
+    fits a lane (from its start, ``maxiter`` L-BFGS steps, padded to
+    ``n_max`` rows, by default their own largest), all in one lane batch:
+    ``(log likelihoods, fitted packed leaves (B, 4))`` as numpy arrays."""
+    from .utils import cluster as tc
+
+    dtype, device = tc._where(device, dtype)
+    n_max = n_max or max(x.shape[0] for x, _, _ in items)
+    ll, _, U = tc._fit_lanes(tc._u0(len(items), dtype, device),
+                             *tc.pad_stack(items, n_max, dtype, device), True, maxiter)
+    return ll.double().cpu().numpy(), U.double().cpu().numpy()
+
+
+def cluster_joins(history):
+    """Each round's best join, from ``utils/cluster.cluster(history=...)``:
+    ``[(improvement, joined, pair fit, (single fit, single fit))]``, a fit
+    being ``(members, (X, Y, sel), U, ll)``; the last is the stop."""
+    latest, active, out = {}, None, []
+    for fits in history:
+        latest.update({f[0]: f for f in fits})
+        singles = [f[0][0] for f in fits if len(f[0]) == 1]
+        if active is None:
+            active = singles
+        else:
+            (new,) = singles
+            active = [c for c in active if not set(c) <= set(new)] + [new]
+        best = None
+        for a in range(len(active)):
+            for b in range(a):
+                pair = latest.get((active[a], active[b])) or latest[(active[b], active[a])]
+                si, sj = latest[(pair[0][0],)], latest[(pair[0][1],)]
+                imp = pair[3] - si[3] - sj[3]
+                if best is None or imp > best[0]:
+                    best = (imp, imp > 0, pair, (si, sj))
+        if best is None:
+            break
+        out.append(best)
+    return out
+
+
+def cluster_readings(series=40, points=20, maxiter=30, path=None, device=None):
+    """``chip_smoke.py`` phase 12's float32 clustering on the card, and for
+    each round's best join its improvement (the pair's log likelihood less
+    its singles') in float32, in float64 at the same leaves and noise, and in
+    float64 with the three lanes fitted again from the loop's start: one line
+    a round. The joins of two families and the stop go to ``path`` (npz:
+    each round's three lanes, their float32 leaves and log likelihoods) for
+    the JAX package's own fits of the same lanes
+    (tests/test_torch_cluster.py::test_jax_fits_of_the_cards_family_joins)."""
+    import numpy as np
+
+    from . import workload
+    from .utils import cluster as tc
+
+    data, inputs, fam = workload.cluster_data(series, points)
+    n_max = series * points
+    history = []
+    groups = tc.cluster([d.copy() for d in data], [x.copy() for x in inputs],
+                        maxiter=maxiter, history=history, device=device,
+                    dtype=torch.float32)
+    print(f"# cluster f32: families per group "
+          f"{[sorted({fam[i] for i in g}) for g in groups]}")
+    joins = cluster_joins(history)
+    lanes = [f for _, _, pair, singles in joins for f in (pair,) + singles]
+    items = [f[1] for f in lanes]
+    at_leaves = tc.lane_lml(tc.f32_effective(np.stack([f[2] for f in lanes])), items,
+                            dtype=torch.float64, device=device)
+    refitted, _ = refit(items, maxiter, dtype=torch.float64, device=device, n_max=n_max)
+    saved = {"n_max": np.array(n_max), "maxiter": np.array(maxiter)}
+    for r, (imp, joined, pair, _) in enumerate(joins):
+        same, fit = at_leaves[3 * r:3 * r + 3], refitted[3 * r:3 * r + 3]
+        members = [sorted({fam[i] for i in m}) for m in pair[0]]
+        print(f"# cluster f32, round {r + 1} {'join' if joined else 'stop, best rejected'} "
+              f"families {members[0]} + {members[1]}: f32 {imp:+.4f}; f64 at the same leaves "
+              f"{same[0] - same[1] - same[2]:+.4f}; f64 fitted from the same start "
+              f"{fit[0] - fit[1] - fit[2]:+.4f}; pair LL f32 {pair[3]:.4f}, f64 at its leaves "
+              f"{same[0]:.4f}, f64 fitted {fit[0]:.4f}")
+        if members[0] != members[1] or not joined:
+            for k, f in enumerate(lanes[3 * r:3 * r + 3]):
+                for name, a in zip(("X", "Y", "sel"), f[1]):
+                    saved[f"r{r + 1}_{name}{k}"] = np.asarray(a)
+            saved[f"r{r + 1}_U"] = np.stack([f[2] for f in lanes[3 * r:3 * r + 3]])
+            saved[f"r{r + 1}_ll"] = np.array([f[3] for f in lanes[3 * r:3 * r + 3]])
+    if path is not None:
+        np.savez_compressed(path, **saved)
+    return joins
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if len(sys.argv) > 2 and sys.argv[1] == "--sweep":
+        main_sweep(sys.argv[2])
+    elif len(sys.argv) > 2 and sys.argv[1] == "--cluster":
+        cluster_readings(path=sys.argv[2])
+    else:
+        main()

@@ -53,10 +53,8 @@ def _masked_lml(U, X, Y, sel, mask, with_offset):
                   - Y.shape[-1] * logdet - quad)
 
 
-def fit_batch(U0, Xb, Yb, selb, maskb, with_offset, maxiter):
-    """Fit every lane in one L-BFGS call; ``(lml at each lane's optimum,
-    offset)``. The reported value is the likelihood (the reference compares
-    ``m.log_likelihood()``), the prior only shapes the fit."""
+def _fit_lanes(U0, Xb, Yb, selb, maskb, with_offset, maxiter):
+    """:func:`fit_batch`, and each lane's fitted packed leaves ``U (B, 4)``."""
 
     def obj(U):
         pen = 0.5 * (U[:, 3] / _OFFSET_PRIOR_STD) ** 2 if with_offset else 0.0
@@ -66,7 +64,42 @@ def fit_batch(U0, Xb, Yb, selb, maskb, with_offset, maxiter):
     with torch.no_grad():
         ll = _masked_lml(res.x, Xb, Yb, selb, maskb, with_offset)
     off = res.x[:, 3] if with_offset else torch.zeros_like(ll)
-    return ll, off
+    return ll, off, res.x.detach()
+
+
+def fit_batch(U0, Xb, Yb, selb, maskb, with_offset, maxiter):
+    """Fit every lane in one L-BFGS call; ``(lml at each lane's optimum,
+    offset)``. The reported value is the likelihood (the reference compares
+    ``m.log_likelihood()``), the prior only shapes the fit."""
+    return _fit_lanes(U0, Xb, Yb, selb, maskb, with_offset, maxiter)[:2]
+
+
+def lane_lml(U, items, dtype=None, device=None):
+    """The offset-GP log likelihood of each ``(X, Y, sel)`` of ``items`` at
+    its packed leaves, a row of ``U (B, 4)``, in ``dtype`` on ``device``: a
+    clustering lane re-evaluated, in float64 for one, at the leaves a float32
+    fit reached. Returns a float64 numpy array."""
+    dtype, device = _where(device, dtype)
+    with torch.no_grad():
+        ll = _masked_lml(torch.as_tensor(np.asarray(U), dtype=dtype, device=device),
+                         *_own_rows(items, dtype, device), True)
+    return ll.double().cpu().numpy()
+
+
+def f32_effective(U):
+    """``U (B, 4)`` with each lane's raw noise moved to the noise float32
+    evaluates (softplus(raw) + 1e-6 + ``config.noise_jitter``, floored at
+    ``config.f32_noise_floor``), so that float64 builds the same Gram from it."""
+    U = torch.as_tensor(np.asarray(U), dtype=torch.float64).clone()
+    extra = 1e-6 + config.noise_jitter
+    noise = torch.clamp(_POS.forward(U[:, 0]) + extra, min=config.f32_noise_floor)
+    U[:, 0] = _POS.inverse(noise - extra)
+    return U.numpy()
+
+
+def _own_rows(items, dtype, device):
+    """``pad_stack`` of ``items`` to their own largest row count."""
+    return pad_stack(items, max(x.shape[0] for x, _, _ in items), dtype, device)
 
 
 def pad_stack(items, n_max, dtype, device):
@@ -127,14 +160,22 @@ def get_log_likelihood_offset(inputs, data, clust, maxiter=80, device=None, dtyp
     return _fit_one(np.vstack([Xi, Xj]), Y, sel, True, maxiter, where)
 
 
-def cluster(data, inputs, verbose=False, maxiter=80, device=None, dtype=None):
+def cluster(data, inputs, verbose=False, maxiter=80, device=None, dtype=None, history=None,
+            max_lanes=None):
     """Greedy offset-GP clustering (cluster_with_offset.py cluster:92).
 
     ``data``: one ``(S, T_p)`` array per series (S outputs over T_p times);
     ``inputs``: their ``(T_p, 1)`` time stamps, the reference's layout.
     Returns the clusters, lists of the original series' indices. Each round's
     stale singles and pairs are the lanes of one fit, all padded to the total
-    row count; ``device`` None means the card."""
+    row count; ``device`` None means the card. ``max_lanes`` caps the lanes
+    of one fit (a round then takes several; each lane's fit is its own, so
+    only the memory changes).
+
+    ``history``, a list, receives one list a round: each lane fitted that
+    round as ``(members, (X, Y, sel), U, ll)`` (``members`` the tuples of
+    series of its one or two clusters; ``U`` the lane's fitted packed leaves,
+    for :func:`lane_lml`)."""
     where = _where(device, dtype)
     data = [np.asarray(d, dtype=float) for d in data]
     inputs = [np.asarray(x, dtype=float) for x in inputs]
@@ -160,9 +201,16 @@ def cluster(data, inputs, verbose=False, maxiter=80, device=None, dtype=None):
                     slots.append(("p", i, j))
         if not jobs:
             return
-        batch = pad_stack(jobs, n_max, *where)
-        ll, off = fit_batch(_u0(len(jobs), *where), *batch, True, maxiter)
-        ll, off = ll.cpu().numpy(), off.detach().cpu().numpy()
+        step = max_lanes or len(jobs)
+        parts = []
+        for k in range(0, len(jobs), step):
+            part = jobs[k:k + step]
+            parts.append([a.cpu().numpy() for a in _fit_lanes(
+                _u0(len(part), *where), *pad_stack(part, n_max, *where), True, maxiter)])
+        ll, off, U = (np.concatenate(a) for a in zip(*parts))
+        if history is not None:
+            history.append([(tuple(tuple(active[i]) for i in w[1:]), jobs[k], U[k], float(ll[k]))
+                            for k, w in enumerate(slots)])
         for k, w in enumerate(slots):
             if w[0] == "s":
                 loglikes[w[1]] = ll[k]

@@ -903,3 +903,22 @@ def latent_legs(n: int = 512, steps: int = 60, seed: int = 0, dtype=None, device
             LatentLeg("bcgplvm", bcgplvm, stepped), LatentLeg("sparse_gplvm", sparse_gplvm,
                                                               stepped),
             LatentLeg("GPOffsetRegression", offset, stepped)]
+
+
+def cluster_data(series: int = 40, points: int = 20, seed: int = 0):
+    """``series`` series of ``points`` times in four shape families (two
+    sinusoids, two ramps, as examples/latent_plots_and_clustering.py), each
+    shifted in time by U(-0.3, 0.3), noise 0.1; returns (data, inputs, family
+    of each series) in ``utils/cluster.cluster``'s layout."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 3.0, points)[:, None]
+    families = (lambda s: np.sin(2.0 * s), lambda s: 1.5 * np.cos(3.0 * s),
+                lambda s: 2.0 - 2.0 * s, lambda s: -1.0 + 1.0 * s)
+    data, inputs, fam = [], [], []
+    for i in range(series):
+        f = i % len(families)
+        d = rng.uniform(-0.3, 0.3)
+        data.append(families[f](t - d).T + 0.1 * rng.standard_normal((1, points)))
+        inputs.append(t.copy())
+        fam.append(f)
+    return data, inputs, fam

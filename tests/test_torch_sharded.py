@@ -506,3 +506,151 @@ def test_jax_f32_ei_reading_at_the_cards_bo_fit():
           f"{abs(ours[torch.float32] - ours[torch.float64]) / abs(ours[torch.float64]):.3e})")
     np.testing.assert_allclose(ours[torch.float64], j64, rtol=1e-9)
     assert np.isfinite(j32)
+
+
+SWEEP_POINTS, FIXED_ANCHORS = 1000, 8
+
+
+def fixed_anchor_points(score, lo=-2.0, hi=2.0, d=6):
+    """The sweep points and fixed anchors of the mesh's float32 gate
+    (``chip_smoke.py`` phase 12): SWEEP_POINTS seeded uniform points in the
+    box, and the FIXED_ANCHORS best of them by ``score`` (lower is better)."""
+    sweep = np.random.default_rng(0).uniform(lo, hi, size=(SWEEP_POINTS, d))
+    return sweep, sweep[np.argsort(np.asarray(score(sweep)))[:FIXED_ANCHORS]]
+
+
+@pytest.mark.slow
+def test_jax_f32_ei_mesh_vs_no_mesh_at_the_cards_bo_fit():
+    """The JAX package's own float32 at the card's fitted
+    ``BayesianOptimization(mesh=...)`` surrogate
+    (tests/data/sharded_bo_fitted_unbiased_k.npz, the fit with the unbiased
+    exponential in the K kernel),
+    on a 4-device mesh against no mesh, printed with ``-s``: (1) the -EI of
+    the acquisition argmax over five sweep seeds, how far float32 alone moves
+    the suggestion when the anchors' L-BFGS lanes are batched otherwise (EI,
+    1000 sweep points, 5 anchors padded to 8 lanes on the mesh, 200 steps: the
+    port's defaults and ``chip_smoke.py`` phase 12's), with float64's beside
+    it; (2) what the mesh itself computes: the sweep's -EI at 1000 points and
+    -EI with its gradient at 8 fixed anchors, sharded against unsharded, with
+    the port's own on a 4-shard CPU mesh beside them, and the same in float64;
+    (3) the float32 sweep's -EI, the anchors' -EI and its gradient against
+    float64 at the same points (``["acq_sweep_vs_f64"]``,
+    ``["acq_anchor_vs_f64"]``, ``["acq_grad_vs_f64"]``: the readings behind
+    the float32 limits). How far two float32 programs drift apart moves with
+    the CPU's thread count; pin the test to one core (``taskset -c 0``) to
+    reproduce the stored readings. Marked slow: ten float32 and ten float64
+    argmaxes at N = 4096."""
+    from pathlib import Path
+
+    from jax.sharding import PartitionSpec as P
+
+    from gaussian_process_optimization_tpu.bo.acquisitions import AcquisitionEI
+    from gaussian_process_optimization_tpu.bo.optimizer import AcquisitionOptimizer
+    from gaussian_process_optimization_tpu.bo.space import DesignSpace
+    from gaussian_process_optimization_tpu.models.bo_models import _fmin_device
+
+    saved = dict(np.load(Path(__file__).parent / "data" / "sharded_bo_fitted_unbiased_k.npz"))
+    kern = jk.Matern52.create(6, variance=float(saved["kern.variance"]),
+                              lengthscale=float(saved["kern.lengthscale"]))
+    m64 = JGP.create(saved["X"].astype(float), saved["Y"].astype(float), kernel=kern,
+                     noise_var=float(saved["likelihood_variance"]), max_points=4096)
+    space = DesignSpace(bounds_to_space([(-2.0, 2.0)] * 6))
+    mesh = js.make_mesh(4, ("data",))
+
+    class _Fitted:
+        def __init__(self, gp):
+            self.gp, self.post = gp, gp.inference()
+
+        def device_state(self):
+            return self.gp, self.post, _fmin_device(self.gp, self.post)
+
+    def argmax_gaps(m):
+        acq = AcquisitionEI(_Fitted(m), space)
+        gaps = []
+        for seed in range(5):
+            fx = [float(AcquisitionOptimizer(space, seed=seed, mesh=mm).optimize(
+                acquisition=acq)[1][0, 0]) for mm in (mesh, None)]
+            gaps.append(abs(fx[0] - fx[1]) / abs(fx[1]))
+        return gaps
+
+    def rel(a, b):
+        a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def mesh_readings(m, anchors=None):
+        """Sharded vs unsharded at the sweep and at the anchors (the best of
+        the sweep by m's own -EI unless given), and the unsharded values."""
+        acq = AcquisitionEI(_Fitted(m), space)
+        args = acq.device_args()
+
+        def neg(*a):
+            return acq.pure_neg_acq(*a[:4], a[4])
+
+        def value_and_grad(*a):
+            return jax.vmap(jax.value_and_grad(lambda x: neg(*a[:4], x[None, :])[0]))(a[4])
+
+        rep = (P(),) * 4
+        sweep_s = jax.jit(js.shard_map(neg, mesh=mesh, in_specs=rep + (P("data", None),),
+                                       out_specs=P("data"), check_vma=False))
+        vg_s = jax.jit(js.shard_map(value_and_grad, mesh=mesh,
+                                    in_specs=rep + (P("data", None),),
+                                    out_specs=(P("data"), P("data", None)), check_vma=False))
+        dtype = m.X.dtype
+        sweep, best = fixed_anchor_points(lambda A: jax.jit(neg)(*args, jnp.asarray(A, dtype)))
+        anchors = best if anchors is None else anchors
+        sweep, at = jnp.asarray(sweep, dtype), jnp.asarray(anchors, dtype)
+        (v, g), (vu, gu) = vg_s(*args, at), jax.jit(value_and_grad)(*args, at)
+        su = jax.jit(neg)(*args, sweep)
+        return ((rel(sweep_s(*args, sweep), su), rel(v, vu), rel(g, gu)),
+                tuple(np.asarray(a, dtype=float) for a in (su, vu, gu)), np.asarray(anchors))
+
+    def port_mesh_readings():
+        """The port's own float32 on a 4-shard CPU mesh, the same readings."""
+        from gaussian_process_optimization_tpu_torch import convert
+        from gaussian_process_optimization_tpu_torch.bo.acquisitions import neg_ei
+        from gaussian_process_optimization_tpu_torch.models.bo_models import masked_fmin
+
+        tmesh = ts.make_mesh(4, device="cpu")
+        gp = convert.gp_from_leaves(saved, dtype=torch.float32, device="cpu")
+        with torch.no_grad():
+            post = gp.inference(precompute_inverse=True)
+        args = (gp, post, masked_fmin(gp, post))
+
+        def neg(A, a):
+            return neg_ei(*a, A)
+
+        def f32(A):
+            return torch.as_tensor(np.asarray(A), dtype=torch.float32)
+
+        with torch.no_grad():
+            sweep, anchors = fixed_anchor_points(lambda A: neg(f32(A), args).numpy())
+            su = neg(f32(sweep), args)
+            ss = ts.make_sharded_sweep(lambda a, A: neg(A, a), tmesh)(args, f32(sweep))
+
+        def value_and_grad(fun):
+            U = f32(anchors).requires_grad_(True)
+            v = fun(U)
+            return v.detach().numpy(), torch.autograd.grad(v.sum(), U)[0].numpy()
+
+        vs, gs = value_and_grad(ts.sharded_lanes(tmesh, neg, [args] * 4))
+        vu, gu = value_and_grad(lambda U: neg(U, args))
+        return rel(ss.numpy(), su.numpy()), rel(vs, vu), rel(gs, gu)
+
+    gaps64 = argmax_gaps(m64)
+    with jax.enable_x64(False):
+        m32 = _f32(m64)
+        gaps32 = argmax_gaps(m32)
+        readings, values32, anchors = mesh_readings(m32)
+    readings64, values64, _ = mesh_readings(m64, anchors)
+    vs_f64 = tuple(rel(a, b) for a, b in zip(values32, values64))
+    port = port_mesh_readings()
+    print(f"the JAX package's -EI at its argmax, mesh vs no mesh at the card's BO fit, rel "
+          f"per sweep seed 0-4: float32 {[f'{g:.3e}' for g in gaps32]} (max "
+          f"{max(gaps32):.3e}); float64 {[f'{g:.3e}' for g in gaps64]} (max "
+          f"{max(gaps64):.3e}); float32 sharded vs unsharded at the same points, the sweep's "
+          f"-EI / the fixed anchors' -EI / its gradient there: the JAX package "
+          f"{' / '.join(f'{r:.3e}' for r in readings)}, the port on the CPU "
+          f"{' / '.join(f'{r:.3e}' for r in port)}; the JAX package's float64 sharded vs "
+          f"unsharded {' / '.join(f'{r:.3e}' for r in readings64)}; the JAX package's float32 "
+          f"against its float64, unsharded {' / '.join(f'{r:.3e}' for r in vs_f64)}")
+    assert np.isfinite(readings + port + readings64 + vs_f64).all()
