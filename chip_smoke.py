@@ -32,6 +32,16 @@ Phases, each printing its own lines:
                 path and counted too); the fitted model's
                 LML, its gradient and the EI at the argmax are held against a float64
                 recomputation on the card;
+  4b. options — the main path's fit once each with the JAX package's fit options: the
+                trace (each lane finite to its last step, its minimum the lane's f,
+                plot_optimizer through a recording backend), the thread ladder (rungs
+                and -LML beside the default fit's), nonmonotone_eta=0.5 with
+                grow_backtracked=1.0 (num_ls beside the default's, no lane above its
+                start) and grad_matmul_precision="high" (the start gradient against
+                float64 at each precision with a one-bf16-pass control, the backward's
+                time both ways, a 4096^2 product under each global precision), B1-B3
+                launched in each; then the thread ladder on the thesis Ky with
+                ``cuda_chol_blocks`` on (B3 and B4 launched);
   5. B3 again — on the diagonal blocks of the fitted model's own Cholesky factor,
                 with the componentwise residual held to forward substitution's
                 rounding bound;
@@ -930,7 +940,253 @@ def phase_main(dev):
     if fit_grad_rel > GRAD_TERMS_LIMIT:
         raise AssertionError("main path: the float32 gradient at the fitted point "
                              "disagrees with float64 beyond its terms' rounding")
-    return launches, fitted, post
+    return launches, fitted, post, res
+
+
+# The bf16x3 gradient gate: the float32 gradient of the main path's fit
+# objective at its start against float64, max over the components of
+# |g32 - g64| / |g64|. On the CPU through the plain versions (bf16 parts
+# upcast and multiplied in float32, four threads) it reads 2.97e-6 at full
+# precision, 1.42e-5 with grad_matmul_precision "high" and 7.74e-4 with one bf16
+# pass (tests/test_torch_fit_options.py::test_grad_precision_reading_at_the_main_paths_start,
+# printed with -m slow -s): the limit is ~10x the "high" reading, and the
+# one-pass control must read past it.
+GRAD_HIGH_LIMIT = 1.5e-4
+
+
+class _TraceBackend:
+    """A plotting backend that keeps what plot_optimizer draws (the card's
+    machine has no matplotlib): a figure token, and (x, y) per plot call."""
+
+    name = "trace-record"
+
+    def __init__(self):
+        self.lines = []
+
+    def figure(self, rows=1, cols=1, figsize=None):
+        return "figure", [None] * (rows * cols)
+
+    def plot(self, ax, x, y, **kw):
+        self.lines.append((np.asarray(x), np.asarray(y)))
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def _launched(counters, fn):
+    """``(fn(), seconds, launches)``: the host clock around ``fn`` ending in a
+    synchronize, and each kernel's launches during it."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = _sync()
+    out = fn()
+    return out, _sync() - t0, {k: c.launches for k, c in counters.items()}
+
+
+def _start_gradient(model, precision):
+    """The fit objective's gradient at the model's own parameters, with
+    ExactCore's backward at ``precision`` (float64 (n,))."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.models.fit import make_objective
+    from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+
+    packer = make_packer(model)
+    u = packer.pack(model)[None].clone().requires_grad_(True)
+    old, config.grad_matmul_precision = config.grad_matmul_precision, precision
+    try:
+        (g,) = torch.autograd.grad(make_objective(packer)(u, model).sum(), u)
+    finally:
+        config.grad_matmul_precision = old
+    return g[0].double()
+
+
+def _backward_ms(model, starts, precision):
+    """ExactCore's backward alone at the fit's 5 start lanes (tri_inv_lower,
+    tri_tdot, Li^T t, alpha alpha^T), CUDA events around back-to-back calls."""
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.models.gp import AssembleKy, ExactCore
+    from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+
+    with torch.no_grad():
+        m = make_packer(model).unpack(starts, reference=model)
+        Yc = m._normalized_Y()
+        Ky = AssembleKy.apply(m.kern.K(m.X), m._effective_noise(torch.float32), m.mask)
+    Ky.requires_grad_(True)
+    logdet, quad, *_ = ExactCore.apply(Ky, Yc, None, False)
+    loss = (logdet + quad).sum()
+    old, config.grad_matmul_precision = config.grad_matmul_precision, precision
+    try:
+        return _time_ms(lambda: torch.autograd.grad(loss, Ky, retain_graph=True),
+                        calls=5, rounds=3)
+    finally:
+        config.grad_matmul_precision = old
+
+
+def _matmul_modes(dev, n=4096):
+    """One float32 n x n product under each of torch's float32 matmul
+    precisions (the global pin's targets), its error against float64."""
+    from gaussian_process_optimization_tpu_torch.config import matmul_precision
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    A = torch.randn(n, n, generator=gen, device=dev)
+    B = torch.randn(n, n, generator=gen, device=dev)
+    exact = A.double() @ B.double()
+    out = {}
+    try:
+        for mode in ("highest", "high", "medium"):
+            torch.set_float32_matmul_precision(mode)
+            out[mode] = float((A @ B - exact).abs().max() / exact.abs().max())
+    finally:
+        torch.set_float32_matmul_precision(matmul_precision())
+    return out
+
+
+def phase_fit_options(dev, default_fitted, default_res):
+    """The JAX package's fit options through the port at the main path's size
+    (N=4096, D=6, ARD Matern52, 5 x 30, float32, the main path's starts), one
+    refit each: the trace, the thread ladder, the nonmonotone search with the
+    hold policy, and bf16x3 gradient matmuls; then the thread ladder on the
+    thesis Ky with cuda_chol_blocks on."""
+    import dataclasses
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.config import config
+    from gaussian_process_optimization_tpu_torch.models.fit import Fitter, make_objective
+    from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
+    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.utils import plotting_library as tpl
+    from gaussian_process_optimization_tpu_torch.utils.normalizer import normalize_stats
+    from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
+
+    counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
+                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    X, Y = workload.bench_data()
+    model = workload.make_model(X, Y, dtype=torch.float32, device=dev)
+    kw = dict(num_restarts=workload.FIT_RESTARTS, maxiter=workload.FIT_STEPS, tol=0.0)
+    starts = Fitter(model, **kw).draw_starts(model, torch.Generator(device=dev).manual_seed(0))
+    packer = make_packer(model)
+    obj = make_objective(packer)
+    with torch.no_grad():
+        f_start = obj(starts, model)
+
+    def neg_lml(fitted):
+        with torch.no_grad():
+            return float(obj(packer.pack(fitted)[None], fitted)[0])
+
+    total = dict.fromkeys(counters, 0)
+
+    def refit(name, **options):
+        fitter = Fitter(model, **kw, **options)
+        (fitted, res), secs, launches = _launched(counters,
+                                                  lambda: fitter.solve(model, starts))
+        print(f"# fit options, {name}: fit {secs:.3f} s, f per lane {res.f.tolist()}, "
+              f"num_ls {res.num_ls.tolist()}, num_iters {res.num_iters.tolist()}; "
+              f"launches {launches}")
+        _gate_launches(f"fit options, {name}", launches, ("B1", "B2", "B3"))
+        if not bool(torch.isfinite(res.f).all()):
+            raise AssertionError(f"fit options, {name}: f per lane {res.f.tolist()}")
+        for k in total:
+            total[k] += launches[k]
+        return fitted, res
+
+    print(f"# fit options, default (phase 4): f per lane {default_res.f.tolist()}, "
+          f"num_ls {default_res.num_ls.tolist()}")
+
+    # (a) the trace, and plot_optimizer on it
+    _, res = refit("trace=True", trace=True)
+    tr, k = res.trace.cpu(), res.num_iters.cpu()
+    if tr.shape != (workload.FIT_RESTARTS, workload.FIT_STEPS + 1):
+        raise AssertionError(f"fit options: trace of shape {tuple(tr.shape)}")
+    for lane in range(tr.shape[0]):
+        ran, rest = tr[lane, :int(k[lane]) + 1], tr[lane, int(k[lane]) + 1:]
+        if not (bool(torch.isfinite(ran).all()) and bool(torch.isnan(rest).all())):
+            raise AssertionError(f"fit options: lane {lane}'s trace {tr[lane].tolist()}")
+        if float(ran.min()) != float(res.f[lane]):
+            raise AssertionError(f"fit options: lane {lane}'s trace minimum {float(ran.min())} "
+                                 f"is not its f {float(res.f[lane])}")
+    saved, tpl._current = tpl._current, _TraceBackend()
+    try:
+        backend = tpl._current
+        fig = tpl.plot_optimizer(res)
+    finally:
+        tpl._current = saved
+    lengths = [len(x) for x, _ in backend.lines]
+    print(f"# fit options, trace: lane 0 {[round(v, 3) for v in tr[0, :6].tolist()]} ...; "
+          f"plot_optimizer drew {len(lengths)} lines of {lengths} points")
+    if fig is None or lengths != [int(v) + 1 for v in k]:
+        raise AssertionError(f"fit options: plot_optimizer gave {fig}, lines {lengths}")
+
+    # (b) the thread ladder
+    fitted, res = refit("thread_ladder=True", thread_ladder=True)
+    print(f"# fit options, thread ladder: accepted rungs per lane {res.aux.tolist()}; -LML "
+          f"at the fitted point {neg_lml(fitted):.6f} (default fit {neg_lml(default_fitted):.6f})")
+    if res.aux is None or res.aux.shape != (workload.FIT_RESTARTS,):
+        raise AssertionError(f"fit options: thread ladder aux {res.aux}")
+
+    # (c) the nonmonotone search with the hold policy
+    _, res = refit("nonmonotone_eta=0.5, grow_backtracked=1.0", nonmonotone_eta=0.5,
+                   grow_backtracked=1.0)
+    print(f"# fit options, nonmonotone + hold: num_ls per lane {res.num_ls.tolist()} "
+          f"(default {default_res.num_ls.tolist()}); f at the start {f_start.tolist()}")
+    if not bool((res.f <= f_start).all()):
+        raise AssertionError("fit options: the nonmonotone fit returned an f above its start")
+
+    # (d) bf16x3 gradient matmuls: the start gradient against float64, its
+    # control, the backward's time, the global pin's modes, then the refit
+    g64 = _start_gradient(tree_map(lambda t: t.double(), model), "highest")
+    rel = {}
+    for prec in ("highest", "high", "default"):
+        g = _start_gradient(model, prec)
+        rel[prec] = (float(((g - g64).abs() / g64.abs()).max()),
+                     float((g - g64).abs().max() / g64.abs().max()))
+    ms = {prec: _backward_ms(model, starts, prec) for prec in ("highest", "high")}
+    print(f"# fit options, gradient at the start vs float64, max |g32 - g64| / |g64| over "
+          f"components (and / max |g64|): highest {rel['highest'][0]:.3e} "
+          f"({rel['highest'][1]:.3e}), high {rel['high'][0]:.3e} ({rel['high'][1]:.3e}), "
+          f"limit {GRAD_HIGH_LIMIT:g}; control, one bf16 pass, {rel['default'][0]:.3e} "
+          f"({rel['default'][1]:.3e})")
+    print(f"# fit options, ExactCore backward at 5 x 4096: highest {ms['highest']:.3f} ms, "
+          f"high {ms['high']:.3f} ms")
+    print(f"# fit options, a 4096^2 float32 product against float64 under torch's float32 "
+          f"matmul precision: {_matmul_modes(dev)}")
+    if rel["high"][0] > GRAD_HIGH_LIMIT:
+        raise AssertionError("fit options: the bf16x3 gradient is past its limit")
+    if rel["default"][0] <= GRAD_HIGH_LIMIT:
+        raise AssertionError("fit options: the one-pass control did not read past the limit")
+    old, config.grad_matmul_precision = config.grad_matmul_precision, "high"
+    try:
+        fitted, _ = refit('grad_matmul_precision="high"')
+    finally:
+        config.grad_matmul_precision = old
+    print(f"# fit options, bf16x3 gradients: -LML at the fitted point {neg_lml(fitted):.6f} "
+          f"(default fit {neg_lml(default_fitted):.6f})")
+
+    # the thread ladder on the thesis Ky, factored by blocked_cholesky with B4
+    Xt, Yt = workload.thesis_data()
+    bo = workload.thesis_bo(Xt, Yt, device=dev, dtype=torch.float32)
+    gm = bo.model
+    steps, gm.max_iters = gm.max_iters, 0
+    gm.updateModel(bo.space.unzip_inputs(bo.X), np.asarray(normalize_stats(bo.Y)))
+    gm.max_iters = steps
+    tmodel = dataclasses.replace(gm.model, jitter_hint=torch.zeros((), device=dev))
+    fitter = Fitter(tmodel, num_restarts=workload.FIT_RESTARTS, maxiter=steps,
+                    fix=("likelihood_variance",), thread_ladder=True)
+    old, config.cuda_chol_blocks = config.cuda_chol_blocks, True
+    try:
+        (_, res), secs, launches = _launched(counters, lambda: fitter(
+            tmodel, torch.Generator(device=dev).manual_seed(0)))
+    finally:
+        config.cuda_chol_blocks = old
+    print(f"# fit options, thread ladder on the thesis Ky (cuda_chol_blocks on): fit "
+          f"{secs:.3f} s, accepted rungs per lane {res.aux.tolist()}, f per lane "
+          f"{res.f.tolist()}, num_ls {res.num_ls.tolist()}; launches {launches}")
+    _gate_launches("fit options, thesis thread ladder", launches, ("B3", "B4"))
+    if not bool(torch.isfinite(res.f).all()):
+        raise AssertionError("fit options: the thesis thread-ladder fit is not finite")
+    for k in total:
+        total[k] += launches[k]
+    return total
 
 
 # The f32 thesis -LML against float64 on the matrix the f32 factor does
@@ -3895,9 +4151,11 @@ def main():
     rows = phase_kernels(dev)
     gplvm_row = _gplvm_kernel_row(dev)
     rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], gplvm_row["max_abs_err"])
-    launches, fitted, post = phase_main(dev)
+    launches, fitted, post, res = phase_main(dev)
     rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"],
                                     phase_tri_inv_on_main_path(post.L))
+    option_launches = phase_fit_options(dev, fitted, res)
+    del res
     thesis_launches, b4_err = phase_thesis(dev)
     rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_err)
     composite_launches = phase_composite(dev)
@@ -3941,6 +4199,7 @@ def main():
                         "launches_sharded": sharded_launches[key],
                         "launches_cluster": cluster_launches[key],
                         "launches_examples": example_launches[key],
+                        "launches_options": option_launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_us": r["bound_us"], "bound_by": r["bound_by"],

@@ -7,21 +7,47 @@ gets lies on a CUDA device. :func:`resolve_device` gives every entry point its
 device: the card unless the caller names another, and :func:`resolve_dtype` its
 dtype: float32 on the card, float64 on the CPU.
 
-Importing this module pins float32 matmuls to full precision: TF32 keeps ~10
-mantissa bits, and the reference pins its matmuls to full f32 because reduced
-precision moved regret. The reference's gradient-only ``grad_matmul_precision``
-knob (a bf16x3 TPU setting) has no counterpart: gradients run in full f32.
+Importing this module pins float32 matmuls to full precision, as importing the
+reference pins ``jax_default_matmul_precision``: reduced precision moved regret
+there. The reference's two switches of that pin map to torch's nearest idiom,
+:func:`matmul_precision`. The gradient-only ``grad_matmul_precision`` (the
+exact GP's backward matmuls in bf16x3, ``ops/linalg.matmul``) is a field below.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Literal
 
 import torch
 
+# the reference's jax_default_matmul_precision names -> torch's float32 matmul
+# precision
+_PRECISIONS = {"highest": "highest", "float32": "highest",
+               "high": "high", "tensorfloat32": "high", "bfloat16_3x": "high",
+               "default": "medium", "bfloat16": "medium", "fastest": "medium"}
+
+
+def matmul_precision() -> str:
+    """The global float32 matmul precision from the reference's environment
+    variables (its ``__init__.py``): none set pins "highest";
+    ``GPO_TPU_MATMUL_PRECISION=high`` gives torch's "high", which on the card is
+    TF32 (10 explicit mantissa bits, where the TPU's bf16x3 keeps about 16);
+    ``GPO_TPU_FAST_MATMUL`` gives "medium", torch's name for a bf16 pass (the
+    TPU's own single pass), which cuBLAS runs as TF32 on the card: a 4096^2
+    product reads the same error under "high" and "medium" there
+    (``chip_smoke.py`` phase 4b)."""
+    if os.environ.get("GPO_TPU_FAST_MATMUL"):
+        return "medium"
+    name = os.environ.get("GPO_TPU_MATMUL_PRECISION", "highest")
+    if name not in _PRECISIONS:
+        raise ValueError(f"GPO_TPU_MATMUL_PRECISION={name!r}: one of {sorted(_PRECISIONS)}")
+    return _PRECISIONS[name]
+
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-torch.set_float32_matmul_precision("highest")
+torch.set_float32_matmul_precision(matmul_precision())
 
 
 @dataclasses.dataclass
@@ -47,6 +73,20 @@ class Config:
     # diagonal blocks in the batched Cholesky kernel; off, as the reference's
     # pallas_chol_blocks is: the full-size cholesky_ex
     cuda_chol_blocks: bool = False
+    # Matmul precision of the exact GP's backward only (ExactCore.backward:
+    # tri_inv_lower's merge products, tri_tdot, Li^T t and alpha alpha^T):
+    # "highest" (float32) or "high" (bf16x3: each float32 operand split into
+    # two bf16 parts, three bf16 products summed in float32, ~16 mantissa
+    # bits). The reference defaults to "high"; the port to "highest", for
+    # three reasons: JAX on the CPU ignores the precision, so the two packages
+    # agree there already; every reduced-precision knob stays opt-in behind the
+    # regret gate (ROADMAP); and the card's float32 gates (chip_smoke.py) were
+    # set at full precision. GPO_GRAD_MATMUL_PRECISION=high opts in.
+    grad_matmul_precision: str = os.environ.get("GPO_GRAD_MATMUL_PRECISION", "highest")
+    # the line search's warm-start growth after a backtracked accept (the
+    # Fitter's default grow_backtracked; ops/lbfgs.py); 1.0 is the hold
+    # policy, which moved regret in the reference's A/B, so 2.0 stays
+    ls_grow_backtracked: float = float(os.environ.get("GPO_LS_GROW_BACKTRACKED", "2.0"))
 
 
 config = Config()

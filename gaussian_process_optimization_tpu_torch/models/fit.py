@@ -8,11 +8,14 @@ starts is split from the solve, so a caller (or a test) can hand in its own.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..config import config
 from ..ops import lbfgs
 from ..utils.priors import Prior
 from ..utils.tree import leaf_name, named_leaves
@@ -25,16 +28,18 @@ HISTORY = 10
 MAX_LS = 8
 
 
-def make_objective(packer, priors: dict[str, Prior] | None = None):
-    """obj(U, model) = -(LML + log prior) of the model with packed parameters
-    U; ``U (B, n)`` gives one value per lane, ``(B,)``.
+def make_objective(packer, priors: dict[str, Prior] | None = None, extra_loss=None):
+    """obj(U, model) = -(LML + log prior - extra_loss) of the model with packed
+    parameters U; ``U (B, n)`` gives one value per lane, ``(B,)``.
 
     ``priors`` maps a field name to a Prior on the constrained value (GPy
     core/model.py:101-127: objective = -logL - logPrior); the name is the
     leaf's last attribute name, so ``lengthscale`` reaches every part of a
     combination kernel. A priored leaf that is not fixed also gets its
     transform's log-Jacobian, so the density is the change-of-variables one in
-    the optimizer's coordinates (GPy priorizable.py:57-65)."""
+    the optimizer's coordinates (GPy priorizable.py:57-65). ``extra_loss(m)``,
+    one value per lane of the unpacked model, is added to the objective.
+    ``obj.tail(m, lml)`` is the objective from a model's LML."""
 
     def log_prior(m):
         total = 0.0
@@ -56,14 +61,33 @@ def make_objective(packer, priors: dict[str, Prior] | None = None):
             total = total + term
         return total
 
-    def obj(U, model):
-        m = packer.unpack(U, reference=model)
-        total = m.log_marginal_likelihood()
+    def tail(m, total):
         if priors:
             total = total + log_prior(m)
+        if extra_loss is not None:
+            total = total - extra_loss(m)
         return -total
 
+    def obj(U, model):
+        m = packer.unpack(U, reference=model)
+        return tail(m, m.log_marginal_likelihood())
+
+    obj.tail = tail
     return obj
+
+
+def _ladder_objective(packer, obj):
+    """``(U, hint, model) -> (objective, rung)``: each lane factors greedily
+    from its own hint (``GPRegression.jitter_greedy``) and returns the rung it
+    accepted, as a float32 aux (the reference's ``obj_aux``, fit.py:124-128)."""
+
+    def obj_aux(U, hint, model):
+        m = packer.unpack(U, reference=model)
+        m = dataclasses.replace(m, jitter_hint=hint, jitter_greedy=True)
+        lml, *_, rung = m._core()
+        return obj.tail(m, lml), rung.to(torch.float32)
+
+    return obj_aux
 
 
 class Fitter:
@@ -76,12 +100,24 @@ class Fitter:
     ``mesh`` (``parallel/sharded.Mesh``) the restart lanes are split across its
     shards, each block evaluated on its shard's device
     (``sharded.sharded_lanes``); ``num_restarts`` must then be a multiple of
-    the axis size."""
+    the axis size.
+
+    The reference's line-search options, off by default: ``nonmonotone_eta``
+    and ``grow_backtracked`` go to ``lbfgs.minimize`` (None reads
+    ``config.ls_grow_backtracked``). ``thread_ladder`` (None reads
+    ``GPO_THREAD_LADDER``; only for an exact ``GPRegression``) threads each
+    lane's accepted ladder rung into its next trial as ``jitter_hint``, with
+    ``jitter_greedy``, through the L-BFGS aux channel, starting from the
+    model's own hint; a mesh passes the rungs through with the lanes.
+    ``trace`` (the port's, for ``plot_optimizer``) records each lane's
+    objective per step in the result's ``trace``."""
 
     def __init__(self, template_model: Any, num_restarts: int = 5, maxiter: int = 1000,
                  tol: float = 1e-5, fix: tuple = (), transform_overrides: dict | None = None,
                  priors: dict[str, Prior] | None = None, history: int = HISTORY,
-                 max_ls: int = MAX_LS, mesh=None):
+                 max_ls: int = MAX_LS, mesh=None, nonmonotone_eta: float = 0.0,
+                 grow_backtracked: float | None = None, thread_ladder: bool | None = None,
+                 trace: bool = False):
         if mesh is not None and num_restarts % mesh.shape["data"]:
             raise ValueError(f"{num_restarts} restarts do not split over "
                              f"{mesh.shape['data']} shards")
@@ -94,6 +130,17 @@ class Fitter:
         self.history = history
         self.max_ls = max_ls
         self.objective = make_objective(self.packer, priors=priors)
+        self.nonmonotone_eta = nonmonotone_eta
+        self.trace = trace
+        self.grow_backtracked = (config.ls_grow_backtracked if grow_backtracked is None
+                                 else grow_backtracked)
+        if thread_ladder is None:
+            thread_ladder = bool(os.environ.get("GPO_THREAD_LADDER", ""))
+        if thread_ladder:
+            from .gp import GPRegression
+
+            thread_ladder = type(template_model) is GPRegression
+        self.thread_ladder = bool(thread_ladder)
         self.evaluations = 0
 
     def draw_starts(self, model, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -112,22 +159,34 @@ class Fitter:
         with the best finite lane's parameters. ``evaluations`` counts the
         batched objective calls (one forward of every lane each)."""
         self.evaluations = 0
+        aux0 = None
+        if self.thread_ladder:
+            obj = _ladder_objective(self.packer, self.objective)
+            h0 = model.jitter_hint
+            aux0 = (torch.zeros((), dtype=torch.float32, device=starts.device) if h0 is None
+                    else h0.to(device=starts.device, dtype=torch.float32).reshape(()))
+        else:
+            obj = self.objective
         if self.mesh is None:
-            def batched(U):
-                return self.objective(U, model)
+            def batched(U, *aux):
+                return obj(U, *aux, model)
         else:
             from ..parallel import sharded
 
             batched = sharded.sharded_lanes(
-                self.mesh, self.objective, [sharded.place(model, d) for d in self.mesh.shards()])
+                self.mesh, lambda U, m, *aux: obj(U, *aux, m),
+                [sharded.place(model, d) for d in self.mesh.shards()])
 
-        def objective(U):
+        def objective(U, *aux):
             self.evaluations += 1
-            return batched(U)
+            return batched(U, *aux)
 
         res = lbfgs.minimize(objective, starts,
                              maxiter=self.maxiter, tol=self.tol, history=self.history,
-                             max_ls=self.max_ls, carry_graph=True)
+                             max_ls=self.max_ls, carry_graph=True,
+                             nonmonotone_eta=self.nonmonotone_eta,
+                             grow_backtracked=self.grow_backtracked, aux0=aux0,
+                             trace=self.trace)
         f = torch.where(torch.isfinite(res.f), res.f, torch.full_like(res.f, float("inf")))
         best = int(torch.argmin(f))
         return self.packer.unpack(res.x[best], reference=model), res

@@ -92,7 +92,8 @@ class ExactCore(torch.autograd.Function):
     Only logdet and quad are differentiable. alpha = L^-T t is not formed on
     the forward (the LML does not need it): :meth:`GPRegression.inference`
     forms it for the posterior, and the backward forms it as the matmul Li^T t
-    from the Li it needs anyway."""
+    from the Li it needs anyway. The backward's products run at
+    ``config.grad_matmul_precision``, as the reference's ``_exact_core_bwd``."""
 
     @staticmethod
     def forward(ctx, Ky, Yc, hint, greedy):
@@ -108,14 +109,19 @@ class ExactCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, c_logdet, c_quad, *_):
         L, t = ctx.saved_tensors
-        Li = linalg.tri_inv_lower(L)
-        alpha = Li.transpose(-1, -2) @ t
+        # the gradient-only precision (config.grad_matmul_precision): these
+        # products steer the optimizer and never reach a prediction
+        prec = config.grad_matmul_precision
+        prec = None if prec == "highest" else prec
+        Li = linalg.tri_inv_lower(L, precision=prec)
+        alpha = linalg.matmul(Li.transpose(-1, -2), t, prec)
         dKy = dYc = None
         if ctx.needs_input_grad[0]:
-            Wi = linalg.tri_tdot(Li)
+            Wi = linalg.tri_tdot(Li, precision=prec)
             del Li
             dKy = Wi.mul_(c_logdet[..., None, None])
-            dKy.sub_((alpha @ alpha.transpose(-1, -2)).mul_(c_quad[..., None, None]))
+            dKy.sub_(linalg.matmul(alpha, alpha.transpose(-1, -2), prec)
+                     .mul_(c_quad[..., None, None]))
         if ctx.needs_input_grad[1]:
             dYc = _sum_to((2.0 * c_quad[..., None, None]) * alpha, ctx.yc_shape)
         return dKy, dYc, None, None
@@ -139,9 +145,11 @@ class Posterior:
 class GPRegression:
     """Exact GP regression with a Gaussian likelihood. ``X (N, D)`` and
     ``Y (N, P)`` may be padded to a fixed budget; ``mask (N,)`` flags real rows.
-    ``jitter_hint`` (a scalar, None = 0) is the first ladder rung probed, a data
-    leaf; ``jitter_greedy`` keeps the first rung that factors instead of
-    verifying the minimal one (``ops/linalg.jitchol_full``).
+    ``jitter_hint`` (a scalar, or one per lane; None = 0) is the first ladder
+    rung probed, a data leaf (the thread ladder sets a ``(B,)`` hint, one per
+    restart lane, on the unpacked model); ``jitter_greedy`` keeps the first
+    rung that factors instead of verifying the minimal one
+    (``ops/linalg.jitchol_full``).
 
     Noise and lanes: ``likelihood_variance`` has shape ``lanes`` (one variance
     per lane), or ``lanes + (N,)`` when ``heteroscedastic`` (one per lane and

@@ -22,6 +22,13 @@ Gradients, two modes as in the reference:
 Line search: backtracking Armijo with the noise-aware slack, safeguarded
 quadratic interpolation and the warm-started first trial; a non-finite trial
 just shrinks the step. Box constraints by gradient projection.
+
+Options, each off by default as in the reference: ``trace`` records each
+lane's objective per iteration; ``nonmonotone_eta`` tests each lane's Armijo
+condition against its own Zhang-Hager average of past values;
+``grow_backtracked`` sets the warm start's growth after a backtracked accept;
+``aux0`` threads a per-lane aux tensor through the objective, each lane
+receiving the aux of its own last accepted evaluation.
 """
 from __future__ import annotations
 
@@ -37,6 +44,11 @@ class LBFGSResult(NamedTuple):
     converged: torch.Tensor  # stopped on the projected-gradient tolerance
     num_ls: torch.Tensor     # objective evaluations spent in line searches
     failed: torch.Tensor     # a line search failed at max_ls trials, or a bad start
+    # (B, maxiter + 1) objective per iteration, NaN past num_iters; only with
+    # minimize(..., trace=True)
+    trace: torch.Tensor = None
+    # the aux of each lane's last accepted evaluation; only with aux0
+    aux: torch.Tensor = None
 
 
 def _two_loop(k, g, S, Ys, rho, gamma, m):
@@ -65,12 +77,28 @@ def _two_loop(k, g, S, Ys, rho, gamma, m):
     return -q
 
 
-def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
-             lower=None, upper=None, maxiter: int = 1000, history: int = 10,
-             tol: float = 1e-5, max_ls: int = 25, carry_graph: bool = True) -> LBFGSResult:
+def minimize(fun: Callable, x0: torch.Tensor, lower=None, upper=None, maxiter: int = 1000,
+             history: int = 10, tol: float = 1e-5, max_ls: int = 25, carry_graph: bool = True,
+             trace: bool = False, nonmonotone_eta: float = 0.0, grow_backtracked: float = 2.0,
+             aux0=None) -> LBFGSResult:
     """Minimize each lane of ``fun`` from the rows of ``x0 (B, n)`` (a 1-D
     ``x0`` is one lane). ``lower`` / ``upper`` broadcast to ``x0`` and turn on
-    box projection. Arguments as the reference's ``lbfgs.minimize``."""
+    box projection. Arguments as the reference's ``lbfgs.minimize``:
+
+    - ``trace``: ``result.trace`` holds each lane's f0 and then the objective
+      of each step, ``(B, maxiter + 1)``, NaN where the lane did not step;
+    - ``nonmonotone_eta`` in [0, 1): Zhang-Hager acceptance, each lane against
+      its weighted average C of past values (0: plain Armijo); the returned
+      ``(x, f)`` is the best seen either way;
+    - ``grow_backtracked``: the warm start's growth of the accepted step after
+      a backtracked accept (4 after a first-trial accept, capped at 1); 1.0 is
+      the hold policy;
+    - ``aux0``: a per-lane tensor (its first axis the lanes; a scalar is
+      broadcast to them). ``fun(X, aux)`` then returns ``(f, aux_out)`` with
+      ``aux_out`` shaped as ``aux0``; every evaluation gets, in each lane, the
+      aux of that lane's last accepted evaluation (the first gets ``aux0``),
+      and ``result.aux`` holds the final one. The aux is not differentiated.
+    """
     single = x0.ndim == 1
     x0 = x0.detach()[None] if single else x0.detach()
     B, n = x0.shape
@@ -81,6 +109,27 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
     hi = None if upper is None else torch.as_tensor(upper, dtype=dtype, device=dev).expand(B, n)
     eps = torch.finfo(dtype).eps
     c1 = 1e-4
+    eta = float(nonmonotone_eta)
+    has_aux = aux0 is not None
+    if has_aux:
+        aux0 = torch.as_tensor(aux0, device=dev)
+        if single:
+            aux0 = aux0[None]
+        elif aux0.ndim == 0:
+            aux0 = aux0.expand(B)
+        elif aux0.shape[0] != B:
+            raise ValueError(f"aux0 has {aux0.shape[0]} rows for {B} lanes")
+
+    def rows(mask, new, old):
+        """Per-lane select of a tensor whose first axis is the lanes."""
+        return torch.where(mask.reshape((B,) + (1,) * (old.ndim - 1)), new, old)
+
+    def call(x, aux):
+        """``(f, aux_out)``; ``aux_out`` None without the aux channel."""
+        if not has_aux:
+            return fun(x), None
+        f, aux_out = fun(x, aux)
+        return f, aux_out.detach()
 
     def proj(x):
         if lo is not None:
@@ -92,16 +141,16 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
     def proj_grad(x, g):
         return x - proj(x - g) if has_bounds else g
 
-    def value_and_grad(x, lanes):
+    def value_and_grad(x, lanes, aux):
         xr = x.detach().requires_grad_(True)
         with torch.enable_grad():
-            f = fun(xr)
+            f, aux_out = call(xr, aux)
             (g,) = torch.autograd.grad(f, xr, grad_outputs=lanes.to(dtype))
-        return f.detach(), g
+        return f.detach(), g, aux_out
 
     x0 = proj(x0)
     every = torch.ones(B, dtype=torch.bool, device=dev)
-    f0, g0 = value_and_grad(x0, every)
+    f0, g0, aux = value_and_grad(x0, every, aux0)
 
     k = torch.zeros(B, dtype=torch.int64, device=dev)
     x, f, g = x0.clone(), f0.clone(), g0
@@ -114,13 +163,21 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
     n_ls = torch.zeros(B, dtype=torch.int64, device=dev)
     t_init = torch.ones(B, dtype=dtype, device=dev)
     ls_failed = torch.zeros(B, dtype=torch.bool, device=dev)
+    if eta > 0.0:  # Zhang-Hager reference value and weight, per lane
+        C, Q = f0.clone(), torch.ones(B, dtype=dtype, device=dev)
+    if trace:
+        ftrace = torch.full((B, int(maxiter) + 1), float("nan"), dtype=dtype, device=dev)
+        ftrace[:, 0] = f0
 
-    def line_search(d, active):
-        """Per-lane Armijo search from (x, f, g) along d, for the active lanes.
+    def line_search(d, active, fref):
+        """Per-lane Armijo search from (x, f, g) along d, for the active lanes,
+        each accepting against its ``fref`` (f, or the Zhang-Hager C).
         Lanes not searching are evaluated at their best-seen point (the values
         are discarded), so a frozen lane cannot make the batch's factorizations
-        climb the jitter ladder."""
-        slack = 10.0 * eps * (1.0 + torch.abs(f))
+        climb the jitter ladder. Every trial gets each lane's aux as it was
+        before the search; the accepted trial's aux_out follows the lane's
+        accepted value."""
+        slack = 10.0 * eps * (1.0 + torch.abs(fref))
         md = torch.sum(g * d, dim=-1)
 
         def trial(t, searching):
@@ -128,19 +185,19 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
             if carry_graph:
                 xr = x_new.detach().requires_grad_(True)
                 with torch.enable_grad():
-                    f_graph = fun(xr)
+                    f_graph, aux_new = call(xr, aux)
                 f_new = f_graph.detach()
                 handle = (xr, f_graph)
             else:
                 with torch.no_grad():
-                    f_new = fun(x_new)
+                    f_new, aux_new = call(x_new, aux)
                 handle = None
             ok = torch.isfinite(f_new) & (
-                f_new <= f + c1 * torch.sum(g * (x_new - x), dim=-1) + slack)
-            return x_new, f_new, handle, ok
+                f_new <= fref + c1 * torch.sum(g * (x_new - x), dim=-1) + slack)
+            return x_new, f_new, handle, ok, aux_new
 
         t = t_init.clone()
-        x_acc, f_acc, handle, ok = trial(t, active)
+        x_acc, f_acc, handle, ok, aux_acc = trial(t, active)
         ok = ok & active
         it = torch.zeros(B, dtype=torch.int64, device=dev)
         stops = []  # (graph handle, lanes that stopped on that trial)
@@ -155,9 +212,11 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
             t_q = torch.where(torch.isfinite(t_q), t_q, 0.5 * t)
             t_q = torch.minimum(torch.maximum(t_q, 0.1 * t), 0.5 * t)
             t = torch.where(pending, t_q, t)
-            x_new, f_new, handle, ok_new = trial(t, pending)
+            x_new, f_new, handle, ok_new, aux_new = trial(t, pending)
             x_acc = torch.where(pending[:, None], x_new, x_acc)
             f_acc = torch.where(pending, f_new, f_acc)
+            if has_aux:
+                aux_acc = rows(pending, aux_new, aux_acc)
             ok = torch.where(pending, ok_new, ok)
             it = it + pending.to(it.dtype)
             stopped = pending & (ok_new | (it >= max_ls))
@@ -173,8 +232,8 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
                 g_new = torch.where(lanes[:, None], gr, g_new)
                 del xr, f_graph, gr
         else:
-            f_acc, g_new = value_and_grad(x_acc, active)
-        return x_acc, f_acc, g_new, ok, it + 1, t
+            f_acc, g_new, aux_acc = value_and_grad(x_acc, active, aux)
+        return x_acc, f_acc, g_new, ok, it + 1, t, aux_acc
 
     while True:
         active = ~frozen & (k < maxiter)
@@ -186,17 +245,20 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
         # first iteration: raw gradient scaled to unit infinity-norm
         scale = torch.clamp(torch.max(torch.abs(d), dim=-1).values, min=1.0)
         d = torch.where((k == 0)[:, None], d / scale[:, None], d)
-        x_new, f_new, g_new, ls_ok, n_trials, t_acc = line_search(d, active)
+        # C >= f by construction (Zhang & Hager lemma 1.1); the max guards
+        # rounding. Without the option the reference is f itself.
+        fref = torch.maximum(f, C) if eta > 0.0 else f
+        x_new, f_new, g_new, ls_ok, n_trials, t_acc, aux_new = line_search(d, active, fref)
 
         def upd(new, old):
-            mask = active.reshape((B,) + (1,) * (old.ndim - 1))
-            return torch.where(mask, new, old)
+            return rows(active, new, old)
 
         n_ls = upd(n_ls + n_trials, n_ls)
         # next first trial: grow the accepted step 4x after a clean first-trial
-        # accept, 2x after a backtracked one, capped at 1; reset after a failure
+        # accept, grow_backtracked after a backtracked one, capped at 1; reset
+        # after a failure
         grow = torch.where(n_trials == 1, torch.full_like(t_acc, 4.0),
-                           torch.full_like(t_acc, 2.0))
+                           torch.full_like(t_acc, grow_backtracked))
         t_init = upd(torch.where(ls_ok, torch.clamp(grow * t_acc, max=1.0),
                                  torch.ones_like(t_acc)), t_init)
         s = x_new - x
@@ -218,6 +280,15 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
         small = torch.max(torch.abs(proj_grad(x_new, g_new)), dim=-1).values < tol
         ls_failed = ls_failed | (active & ~ls_ok)
         frozen = frozen | (active & (small | ~ls_ok))
+        if eta > 0.0:
+            Q_new = eta * Q + 1.0
+            C = upd((eta * Q * C + f_new) / Q_new, C)
+            Q = upd(Q_new, Q)
+        if has_aux:
+            aux = upd(aux_new, aux)
+        if trace:  # column k + 1 of each stepping lane
+            col = torch.clamp(k + 1, max=maxiter)[:, None]
+            ftrace.scatter_(1, col, torch.where(active, f_new, ftrace.gather(1, col)[:, 0])[:, None])
         x, f, g = upd(x_new, x), upd(f_new, f), upd(g_new, g)
         k = k + active.to(k.dtype)
 
@@ -225,7 +296,8 @@ def minimize(fun: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
     xb = torch.where(bad_start[:, None], x0, xb)
     fb = torch.where(bad_start, f0, fb)
     res = LBFGSResult(x=xb, f=fb, num_iters=k, converged=frozen & ~ls_failed & ~bad_start,
-                      num_ls=n_ls, failed=ls_failed | bad_start)
+                      num_ls=n_ls, failed=ls_failed | bad_start,
+                      trace=ftrace if trace else None, aux=aux)
     if single:
-        res = LBFGSResult(*(v[0] for v in res))
+        res = LBFGSResult(*(None if v is None else v[0] for v in res))
     return res

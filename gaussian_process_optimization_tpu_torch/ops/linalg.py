@@ -5,7 +5,9 @@ Every function takes leading lane axes. Triangular solves are
 or with :func:`blocked_cholesky` (its diagonal blocks in the batched Cholesky
 kernel) when ``config.cuda_chol_blocks`` is on; the diagonal blocks of
 :func:`tri_inv_lower` route into the triangular-inverse kernel
-(``ops/cuda_linalg.py``).
+(``ops/cuda_linalg.py``). :func:`matmul` takes the reference's ``precision``
+argument, which the exact GP's backward passes to :func:`tri_tdot` and
+:func:`tri_inv_lower` (``config.grad_matmul_precision``).
 """
 from __future__ import annotations
 
@@ -20,21 +22,87 @@ def tdot(X: torch.Tensor) -> torch.Tensor:
     return symmetrify(X @ X.transpose(-1, -2))
 
 
-def symmetrify(A: torch.Tensor) -> torch.Tensor:
-    """Exact symmetry by copying the lower triangle (GPy util/linalg.py:356)."""
+def symmetrify(A: torch.Tensor, upper: bool = False) -> torch.Tensor:
+    """Exact symmetry by copying the lower triangle, or with ``upper`` the
+    upper one (GPy util/linalg.py:356)."""
+    if upper:
+        return torch.triu(A) + torch.triu(A, 1).transpose(-1, -2)
     return torch.tril(A) + torch.tril(A, -1).transpose(-1, -2)
 
 
-def tri_tdot(Li: torch.Tensor, nb: int = 512) -> torch.Tensor:
+def _split_bf16(A: torch.Tensor):
+    """A = hi + lo + O(2^-16 |A|): the bf16 high part and the bf16 rounding of
+    what it leaves."""
+    hi = A.to(torch.bfloat16)
+    return hi, (A - hi.to(A.dtype)).to(torch.bfloat16)
+
+
+def _mm_bf16(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A product of bf16 operands with float32 output. On the card, cuBLAS's
+    bf16 GEMM accumulating in float32 (``out_dtype``); elsewhere the parts
+    upcast and multiplied in float32. A bf16 x bf16 product is exact in
+    float32, so the two differ only in the order of summation."""
+    if not A.is_cuda:
+        return A.float() @ B.float()
+    batch = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2])
+    if not batch:
+        return torch.mm(A, B, out_dtype=torch.float32)
+    A3 = A.expand(batch + A.shape[-2:]).reshape((-1,) + A.shape[-2:])
+    B3 = B.expand(batch + B.shape[-2:]).reshape((-1,) + B.shape[-2:])
+    out = torch.bmm(A3, B3, out_dtype=torch.float32)
+    return out.reshape(batch + out.shape[-2:])
+
+
+def matmul(A: torch.Tensor, B: torch.Tensor, precision=None) -> torch.Tensor:
+    """A @ B at the reference's ``precision`` (``jnp.matmul(..., precision=)``).
+    None or "highest": the plain product. For float32 operands, "high" is
+    bf16x3 (hi hi + hi lo + lo hi over each operand's two bf16 parts, ~16
+    mantissa bits, the TPU's 'high') and "default" one bf16 pass (the TPU's
+    default, ~8 bits); other dtypes ignore the precision, as JAX on the CPU
+    does."""
+    if not _in_bf16(precision, A.dtype):
+        return A @ B
+    return _bf16_passes(*_split_bf16(A), *_split_bf16(B), precision)
+
+
+def _in_bf16(precision, dtype) -> bool:
+    """Whether products at ``precision`` split operands of ``dtype`` into
+    bf16 parts."""
+    if precision in (None, "highest") or dtype != torch.float32:
+        return False
+    if precision not in ("high", "default"):
+        raise ValueError(f"precision {precision!r}: None, 'highest', 'high' or 'default'")
+    return True
+
+
+def _bf16_passes(Ah, Al, Bh, Bl, precision):
+    """The products of split operands: hi hi + hi lo + lo hi ("high") or
+    hi hi alone ("default")."""
+    if precision == "default":
+        return _mm_bf16(Ah, Bh)
+    return (_mm_bf16(Ah, Bl) + _mm_bf16(Al, Bh)) + _mm_bf16(Ah, Bh)
+
+
+def tri_tdot(Li: torch.Tensor, nb: int = 512, precision=None) -> torch.Tensor:
     """Li^T Li for lower-triangular Li, blocked so only nonzero panels multiply
-    (the LAPACK ``lauum`` shape). Exactly symmetric by construction."""
+    (the LAPACK ``lauum`` shape). Exactly symmetric by construction. Each
+    product at ``precision`` (:func:`matmul`; Li is split into its bf16 parts
+    once, not once a panel)."""
     n = Li.shape[-1]
     if n < 2 * nb:
-        return symmetrify(Li.transpose(-1, -2) @ Li)
+        return symmetrify(matmul(Li.transpose(-1, -2), Li, precision))
+    split = _in_bf16(precision, Li.dtype)
+    if split:
+        Lh, Ll = _split_bf16(Li)
     W = torch.zeros_like(Li)
     for k0 in range(0, n, nb):
         k1 = min(k0 + nb, n)
-        blk = Li[..., k0:, k0:k1].transpose(-1, -2) @ Li[..., k0:, k0:]
+        if split:
+            blk = _bf16_passes(Lh[..., k0:, k0:k1].transpose(-1, -2),
+                               Ll[..., k0:, k0:k1].transpose(-1, -2),
+                               Lh[..., k0:, k0:], Ll[..., k0:, k0:], precision)
+        else:
+            blk = Li[..., k0:, k0:k1].transpose(-1, -2) @ Li[..., k0:, k0:]
         W[..., k0:k1, k0:] = blk
         if k1 < n:  # mirror into the strictly-lower block area
             W[..., k1:, k0:k1] = blk[..., :, k1 - k0:].transpose(-1, -2)
@@ -77,7 +145,8 @@ def blocked_cholesky(A: torch.Tensor, nb: int = 256) -> torch.Tensor:
     return L
 
 
-def jitchol_full(A: torch.Tensor, k_start=None, greedy: bool = False):
+def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
+                 greedy: bool = False):
     """Jitter-ladder Cholesky, per lane: ``(L, jitter, ok, rung)``.
 
     GPy's ladder (util/linalg.py:56-74) tries jitter 0, then mean(diag)*1e-6,
@@ -97,9 +166,11 @@ def jitchol_full(A: torch.Tensor, k_start=None, greedy: bool = False):
     finite L with info = 3), so ``cholesky_plain`` sets such lanes to NaN.
 
     Failed lanes (even the largest jitter fails) report ok=False,
-    rung = config.jitchol_maxtries + 1, and the last attempt's L and jitter.
+    rung = maxtries + 1, and the last attempt's L and jitter. ``maxtries``
+    defaults to ``config.jitchol_maxtries``.
     """
-    maxtries = config.jitchol_maxtries
+    if maxtries is None:
+        maxtries = config.jitchol_maxtries
     batch = A.shape[:-2]
     dev = A.device
     diag_mean = torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)
@@ -173,8 +244,8 @@ class _JitChol(torch.autograd.Function):
     diagonal. The jitter the ladder chose is held constant."""
 
     @staticmethod
-    def forward(ctx, A, k_start, greedy):
-        L, jitter, ok, rung = jitchol_full(A, k_start=k_start, greedy=greedy)
+    def forward(ctx, A, maxtries, k_start, greedy):
+        L, jitter, ok, rung = jitchol_full(A, maxtries, k_start=k_start, greedy=greedy)
         ctx.save_for_backward(L)
         ctx.mark_non_differentiable(jitter, ok, rung)
         return L, jitter, ok, rung
@@ -182,7 +253,7 @@ class _JitChol(torch.autograd.Function):
     @staticmethod
     def backward(ctx, L_bar, *_):
         (L,) = ctx.saved_tensors
-        return cholesky_pullback(L, L_bar), None, None
+        return cholesky_pullback(L, L_bar), None, None, None
 
 
 def cholesky_pullback(L: torch.Tensor, L_bar: torch.Tensor) -> torch.Tensor:
@@ -197,10 +268,11 @@ def cholesky_pullback(L: torch.Tensor, L_bar: torch.Tensor) -> torch.Tensor:
     return 0.5 * (S + S.transpose(-1, -2))
 
 
-def jitchol(A: torch.Tensor, k_start=None, greedy: bool = False):
+def jitchol(A: torch.Tensor, maxtries: int | None = None, k_start=None,
+            greedy: bool = False):
     """``(L, jitter, ok)`` of the jitter ladder (GPy jitchol, util/linalg.py:56-74),
     differentiable in ``A`` through the Cholesky pullback."""
-    L, jitter, ok, _ = _JitChol.apply(A, k_start, greedy)
+    L, jitter, ok, _ = _JitChol.apply(A, maxtries, k_start, greedy)
     return L, jitter, ok
 
 
@@ -249,11 +321,13 @@ def blocked_solve_lower(L: torch.Tensor, B: torch.Tensor, nb: int = 512) -> torc
     return x
 
 
-def tri_inv_lower(L: torch.Tensor, block: int = 256) -> torch.Tensor:
+def tri_inv_lower(L: torch.Tensor, block: int = 256, precision=None) -> torch.Tensor:
     """L^-1 for lower-triangular L by divide and conquer: invert the diagonal
     ``block`` blocks in one batched call (the triangular-inverse kernel when
     ``config.cuda_tri_inv``), then merge up a log-depth tree of matmuls with
-    [[A, 0], [C, D]]^-1 = [[A^-1, 0], [-D^-1 C A^-1, D^-1]]."""
+    [[A, 0], [C, D]]^-1 = [[A^-1, 0], [-D^-1 C A^-1, D^-1]]. ``precision``
+    reaches the merge products only, as in the reference: its diagonal-block
+    kernel and its small-n solve run at full precision."""
 
     def diag_inv(blk):
         if config.cuda_tri_inv:
@@ -281,7 +355,7 @@ def tri_inv_lower(L: torch.Tensor, block: int = 256) -> torch.Tensor:
         Ai, Di = inv[..., 0::2, :, :], inv[..., 1::2, :, :]
         C = torch.stack([L[..., (2 * i + 1) * s:(2 * i + 2) * s, 2 * i * s:(2 * i + 1) * s]
                          for i in range(g // 2)], dim=-3)
-        Bk = -(Di @ (C @ Ai))
+        Bk = -matmul(Di, matmul(C, Ai, precision), precision)
         top = torch.cat([Ai, torch.zeros_like(Bk)], dim=-1)
         bot = torch.cat([Bk, Di], dim=-1)
         inv = torch.cat([top, bot], dim=-2)
@@ -300,10 +374,10 @@ def dpotri(L: torch.Tensor) -> torch.Tensor:
     return tri_tdot(tri_inv_lower(L))
 
 
-def pdinv(A: torch.Tensor):
+def pdinv(A: torch.Tensor, maxtries: int | None = None):
     """(A^-1, L, L^-1, logdet) for symmetric positive definite A (GPy pdinv,
     util/linalg.py:193)."""
-    L, _, _ = jitchol(A)
+    L, _, _ = jitchol(A, maxtries)
     Li = tri_inv_lower(L)
     return tri_tdot(Li), L, Li, logdet_from_chol(L)
 

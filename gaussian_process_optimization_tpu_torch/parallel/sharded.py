@@ -176,15 +176,22 @@ def sharded_lanes(mesh, fun, per_shard):
     """``F(U)`` for L-BFGS over lanes split across the shards: lane block s of
     ``U (B, n)`` goes to shard s, where ``fun(U_s, per_shard[s])`` gives its
     ``(B_s,)`` values; they are gathered on U's device. Differentiable: the
-    backward returns each shard's gradient through the same moves."""
+    backward returns each shard's gradient through the same moves. With the
+    L-BFGS aux channel, ``F(U, aux)``: the aux's rows split with the lanes,
+    ``fun(U_s, per_shard[s], aux_s)`` gives ``(values, aux_out)``, and both
+    are gathered."""
     devs = mesh.shards()
 
-    def F(U):
+    def F(U, *aux):
+        blocks = [split_rows(a, len(devs)) for a in aux]
         parts = []
-        for dev, blk, ctx in zip(devs, split_rows(U, len(devs)), per_shard):
+        for s, (dev, blk, ctx) in enumerate(zip(devs, split_rows(U, len(devs)), per_shard)):
             with on(dev):
-                parts.append(fun(blk.to(dev), ctx))
-        return all_gather(parts, U.device)
+                parts.append(fun(blk.to(dev), ctx, *(b[s].to(dev) for b in blocks)))
+        if not aux:
+            return all_gather(parts, U.device)
+        return (all_gather([f for f, _ in parts], U.device),
+                all_gather([a for _, a in parts], U.device))
 
     return F
 

@@ -863,23 +863,27 @@ def plot_covariance(kernel, x=None, plot_limits=(-3.0, 3.0), resolution=None,
 
 def plot_optimizer(trace, ax=None, filename=None):
     """Objective-vs-iteration trace plot (gpy_plot/inference_plots.py
-    plot_optimizer:10). Accepts any object with a ``.trace`` attribute or a
-    plain array; trailing NaNs (unreached iterations) are dropped. The port's
-    ``LBFGSResult`` records no trace, so it gets the reference's message."""
-    from ..ops.lbfgs import LBFGSResult
-
-    t = None if isinstance(trace, LBFGSResult) else getattr(trace, "trace", trace)
+    plot_optimizer:10). Accepts an ``LBFGSResult`` from
+    ``ops.lbfgs.minimize(..., trace=True)`` (or a ``Fitter``'s), any object
+    with a ``.trace`` attribute, or a plain array; trailing NaNs (unreached
+    iterations) are dropped. A ``(B, maxiter + 1)`` trace draws one line per
+    lane."""
+    t = getattr(trace, "trace", trace)
     if t is None:
-        print("No trace present so I can't plot it. Pass an array of objective values.")
+        print("No trace present so I can't plot it. Pass trace=True to "
+              "ops.lbfgs.minimize (or an array of objective values).")
         return None
-    t = _np(t).ravel()
-    # strip only TRAILING NaNs (unreached-iteration padding); interior NaNs
-    # are real diverged steps and must stay on the iteration axis
-    finite = np.where(~np.isnan(t))[0]
-    t = t[: finite[-1] + 1] if finite.size else t[:0]
+    t = _np(t)
+    lanes = t.reshape(-1, t.shape[-1]) if t.ndim > 1 else t.ravel()[None]
     pl = plotting_library()
     fig, axes = pl.figure() if ax is None else (None, [ax])
-    pl.plot(axes[0], np.arange(t.shape[0]), t, label="objective")
+    for i, row in enumerate(lanes):
+        # strip only TRAILING NaNs (unreached-iteration padding); interior NaNs
+        # are real diverged steps and must stay on the iteration axis
+        finite = np.where(~np.isnan(row))[0]
+        row = row[: finite[-1] + 1] if finite.size else row[:0]
+        pl.plot(axes[0], np.arange(row.shape[0]), row,
+                label="objective" if lanes.shape[0] == 1 else f"lane {i}")
     pl.set_labels(axes[0], xlabel="Iteration", ylabel="f(x)")
     if filename and fig is not None:
         pl.save(fig, filename)

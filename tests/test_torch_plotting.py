@@ -292,6 +292,39 @@ def test_none_backend_and_refusals(gp_pair, tmp_path):
         g.plot_latent_scatter()
 
 
+def test_plot_optimizer_draws_a_trace(record):
+    """``plot_optimizer`` of a one-lane ``minimize(..., trace=True)`` hands the
+    same arrays as the JAX package's on its own trace (the unreached
+    iterations' NaNs dropped); a Fitter's ``(B, maxiter + 1)`` trace draws one
+    line per lane, each as long as its lane ran."""
+    import jax.numpy as jnp
+
+    from gaussian_process_optimization_tpu.ops import lbfgs as jlbfgs
+    from gaussian_process_optimization_tpu_torch.models.fit import Fitter
+    from gaussian_process_optimization_tpu_torch.ops import lbfgs
+
+    A = np.diag([1.0, 10.0, 100.0])
+    x0 = np.array([1.0, -1.0, 2.0])
+    ours = lbfgs.minimize(lambda X: 0.5 * torch.sum((X @ torch.tensor(A)) * X, -1) - X[:, 0],
+                          torch.tensor(x0), maxiter=30, trace=True)
+    theirs = jlbfgs.minimize(lambda x: 0.5 * x @ jnp.asarray(A) @ x - x[0], jnp.asarray(x0),
+                             maxiter=30, trace=True)
+    assert ours.trace.shape == (31,) and int(ours.num_iters) < 30
+    (o, fo), (t, ft) = record(lambda: tpl.plot_optimizer(ours), lambda: jpl.plot_optimizer(theirs))
+    assert fo == ft == "fig"
+    assert_same_calls(o, t)
+    plot = next(c for c in o if c[0] == "plot")
+    assert len(plot[1][1]) == int(ours.num_iters) + 1  # (ax, iterations, values)
+    X, Y = np.linspace(-2, 2, 12)[:, None], np.sin(np.linspace(-2, 2, 12))[:, None]
+    m = TGP.create(X, Y, kernel=tk.RBF.create(1, **CPU), noise_var=0.05, **CPU)
+    _, res = Fitter(m, num_restarts=3, maxiter=6, tol=0.0, trace=True)(m)
+    assert res.trace.shape == (3, 7)
+    ((log, fig), _) = record(lambda: tpl.plot_optimizer(res), lambda: None)
+    lines = [c for c in log if c[0] == "plot"]
+    assert fig == "fig" and len(lines) == 3
+    assert [len(c[1][1]) for c in lines] == [int(k) + 1 for k in res.num_iters]
+
+
 @pytest.mark.slow
 def test_bo_plot_acquisition_hands_the_same_arrays(record, monkeypatch):
     """``BO.plot_acquisition`` on forrester after one suggestion (no refit, so
