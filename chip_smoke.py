@@ -42,6 +42,16 @@ Phases, each printing its own lines:
                 time both ways, a 4096^2 product under each global precision), B1-B3
                 launched in each; then the thread ladder on the thesis Ky with
                 ``cuda_chol_blocks`` on (B3 and B4 launched);
+  4c. calls  — the JAX package's call forms on phase 4's fitted model (N=4096, D=6,
+                float32): EI's argmax by ``optimize(f=, f_df=, acquisition=)`` bit for
+                bit ``acq.optimize()``'s (B1 and B3 launched) and ``optimize(f=)`` on
+                the host path, timed; ``make_svgp_train_step(optimizer=...)`` at
+                phase 9's SVGP setting (the default factory bit for bit Adam at
+                optax's settings, an SGD factory's first step u0 - lr * grad, B1 and
+                B2's row pass launched); ``ensemble_sample(init=...)`` on ES_EPMGP's
+                log-density at phase 8's size (the chain of the same draws from
+                init, bit for bit); one ``suggest_next_locations`` of a ``BO`` with
+                ``normalization_type="maxmin"`` equal to one with ``"stats"``;
   5. B3 again — on the diagonal blocks of the fitted model's own Cholesky factor,
                 with the componentwise residual held to forward substitution's
                 rounding bound;
@@ -56,10 +66,12 @@ Phases, each printing its own lines:
                 posterior factor's backward error, and the -LML against float64
                 on the factor's own L L^T are checked; the -LML against float64
                 on the same Ky is printed as a reading;
-  7. loop     — leg A (run last), the tell-and-ask loop itself: ``regret_run`` on
+  7. loop     — leg A, the tell-and-ask loop itself: ``regret_run`` on
                 branin (12 iterations) and hartmann6 (10 of the protocol's 30),
                 latin design of 5, EI, ``exact_feval``, float32, the two runs side by
-                side in interpreters of their own: every iteration ran, no fit
+                side in interpreters of their own (one host thread each), started
+                after phase 9 and run beside phases 10-13 (host loops that leave
+                the card idle), then waited for and held: every iteration ran, no fit
                 failed, branin's best under 1.0, hartmann6's regret inside the range
                 of the JAX package's stored CPU float64 runs after as many
                 evaluations; seconds per iteration split into
@@ -74,7 +86,8 @@ Phases, each printing its own lines:
                 one argmax by the host optimizer under a cost, each timed;
   8. surrogates — GPyOpt's other surrogates and acquisitions at full width, float32
                 on the card, through their entry points with no device given (run
-                before leg A): GP_MCMC + EI_MCMC at GPyOpt's HMC defaults on the main
+                before leg A): GP_MCMC + EI_MCMC at GPyOpt's HMC defaults but the
+                leapfrog step and a chain cut to 100 steps on the main
                 data (accept rate > 0, per-sample predictions and EI_MCMC at the
                 argmax against float64 on the same samples, B1-B3 launched) and a
                 local-penalization batch of 3 over LCB_MCMC; ES_EPMGP and ES on phase
@@ -82,7 +95,8 @@ Phases, each printing its own lines:
                 same mu and Sigma); the VarDTC bound at N=50 000, D=2, M=256 against
                 float64, the FITC, DTC and PEP bounds, a 50-step fit (the bound does
                 not fall, 5 predictions near the truth, B2's row pass launched with
-                dX at Kmn's 256 x 50 000), and sparseGP through BayesianOptimization;
+                dX at Kmn's 256 x 50 000), and sparseGP through BayesianOptimization
+                (its fit cut to 200 steps);
                 warpedGP and input_warped_GP (50 fit steps, -LML against float64 on
                 the card and on the CPU at the fitted point, with a control the
                 limit must catch) and RF at N=256. Phase 3 also holds B1 and B2 at
@@ -118,7 +132,7 @@ Phases, each printing its own lines:
                 points (f32 against f64, the float64 -LML against the dense GP's, a
                 1 x 30 fit). Leg 4: the quasi-periodic state-space GP at N=4096 (seconds
                 per -LML and gradient, f32 against f64, the Matern32 form's float64
-                -LML against the dense GP's, a fit cut to 2 steps). Leg 5: every other
+                -LML against the dense GP's, a fit cut to 1 step). Leg 5: every other
                 zoo kernel at N=4096, K and each leaf's gradient, f32 against f64. B1
                 and B2 also timed at legs 1-2's shapes (D=6 through a 7-column slice,
                 D=1), with plain times and byte bounds. The phase reports every leg
@@ -146,7 +160,8 @@ Phases, each printing its own lines:
                 suggestion, each against the same call unsharded and against
                 float64 (limits from the JAX package's own float32 on its CPU mesh);
                 offset-GP clustering of 40 series in four families (each lane cut to
-                30 L-BFGS steps); one ``torch.profiler`` trace of a sharded -LML into
+                30 L-BFGS steps; in float32 its first round, 820 lanes, in float64
+                to its end); one ``torch.profiler`` trace of a sharded -LML into
                 chiprun_out/trace_phase12 that must name B1's kernel; the plot family
                 through the 'none' backend. Each leg prints its ``PhaseTimer`` split;
                 B1 at a shard's row block and B1 / B2 at the clustering's lanes and
@@ -176,7 +191,8 @@ Phases, each printing its own lines:
      against float64 with each stage (K build, ladder Cholesky, triangular
      solves) and each pair of them on the host's CPU, with the port's blocked
      Cholesky, and on the CPU entirely (prof_stages.py; ROADMAP C10, C11, C13);
- 14. summary  — a JSON line of kernels, then ``{"ok": true, "device": {...}}`` last.
+ 14. summary  — the wall time of each phase, a JSON line of kernels, then
+                ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -184,6 +200,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1189,6 +1206,175 @@ def phase_fit_options(dev, default_fitted, default_res):
     return total
 
 
+def phase_calls(dev, fitted):
+    """4c: the JAX package's call forms through the port at the main path's size
+    (N=4096, D=6, ARD Matern52, float32), on phase 4's fitted model. (a) EI's
+    argmax by ``AcquisitionOptimizer.optimize(f=, f_df=, acquisition=)`` equals
+    ``acq.optimize()``'s bit for bit (two optimizers of the same seed), and
+    ``optimize(f=)`` without the acquisition takes the host path; (b)
+    ``make_svgp_train_step(optimizer=...)`` at phase 9's SVGP setting: the default
+    factory's 3 steps equal Adam at optax's settings bit for bit, and an SGD
+    factory's first step is u0 - lr * grad; (c) ``ensemble_sample(init=...)`` on
+    the ES representers' log-density at phase 8's size equals the chain of the
+    same draws whose initial walkers are ``init``; (d) one
+    ``suggest_next_locations`` of a ``BO`` built with ``normalization_type="maxmin"``
+    equals one built with ``"stats"``. Returns each kernel's launches in the
+    phase."""
+    import dataclasses
+
+    from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.bo.acquisitions import AcquisitionEI
+    from gaussian_process_optimization_tpu_torch.bo.bo_loop import BO
+    from gaussian_process_optimization_tpu_torch.bo.entropy_search import (
+        AcquisitionEntropySearchEPMGP)
+    from gaussian_process_optimization_tpu_torch.bo.evaluators import Sequential
+    from gaussian_process_optimization_tpu_torch.bo.mcmc_sampler import (ensemble_draws,
+                                                                         ensemble_sample)
+    from gaussian_process_optimization_tpu_torch.bo.optimizer import AcquisitionOptimizer
+    from gaussian_process_optimization_tpu_torch.bo.space import DesignSpace, bounds_to_space
+    from gaussian_process_optimization_tpu_torch.models.bo_models import GPModel
+    from gaussian_process_optimization_tpu_torch.models.svgp import make_svgp_train_step
+
+    t_phase = _now()
+    d = fitted.X.shape[1]
+    space = DesignSpace(bounds_to_space([workload.BOX] * d))
+    total = {k: 0 for k in ("B1", "B2", "B3", "B4")}
+
+    def counted(name, fn, keys):
+        _zero_counts()
+        t0 = _sync()
+        out = fn()
+        secs = _sync() - t0
+        launches = _read_counts()
+        _gate_launches(f"calls, {name}", launches, keys)
+        for k in total:
+            total[k] += launches[k]
+        return out, secs, launches
+
+    # (a) the optimizer's call forms on EI
+    def ei(seed):
+        surrogate = GPModel.from_fitted(fitted)
+        opt = AcquisitionOptimizer(space, model=surrogate, seed=seed)
+        return AcquisitionEI(surrogate, space, opt)
+
+    def by_forms():
+        acq = ei(0)
+        return acq.optimizer.optimize(f=acq.acquisition_function,
+                                      f_df=acq.acquisition_function_withGradients,
+                                      acquisition=acq)
+
+    (xa, fa), secs_a, la = counted("acq.optimize()", lambda: ei(0).optimize(), ("B1", "B3"))
+    (xb, fb), secs_b, lb = counted("optimize(f=, f_df=, acquisition=)", by_forms, ("B1", "B3"))
+    print(f"# calls (a), EI on phase 4's fitted model: acq.optimize() {secs_a:.3f} s, launches "
+          f"{la}; optimize(f=, f_df=, acquisition=) {secs_b:.3f} s, launches {lb}; x "
+          f"{xb[0].tolist()}, -EI {float(fb[0, 0]):.6g}; bit for bit "
+          f"{bool(np.array_equal(xa, xb) and np.array_equal(fa, fb))}")
+    if not (np.array_equal(xa, xb) and np.array_equal(fa, fb)):
+        raise AssertionError("calls (a): optimize(f=, f_df=, acquisition=) is not acq.optimize()")
+    host = ei(1)
+    evals = []
+
+    def f(x):
+        evals.append(np.atleast_2d(x).shape[0])
+        return host.acquisition_function(x)
+
+    (xc, fc), secs_c, lc = counted("optimize(f=)", lambda: host.optimizer.optimize(f=f), ())
+    _in_box("calls (a), host path", xc)
+    print(f"# calls (a), optimize(f=) without the acquisition, the host path (scipy L-BFGS-B "
+          f"on f alone from {host.optimizer.num_anchor} anchors): {secs_c:.3f} s, {len(evals)} "
+          f"calls of f on {sum(evals)} rows, launches {lc}; x {xc[0].tolist()}, -EI "
+          f"{float(fc[0, 0]):.6g} (device path {float(fa[0, 0]):.6g})")
+    if not np.isfinite(fc).all():
+        raise AssertionError("calls (a): the host path's value is not finite")
+
+    # (b) make_svgp_train_step(optimizer=...) at phase 9's setting
+    Xs, Ys = workload.sparse_data()
+    model = workload.svgp_model(Xs, Ys)
+    like = dict(dtype=model.Z.dtype, device=model.Z.device)
+    batches = []
+    for seed in range(3):
+        rows = np.random.default_rng(seed).permutation(Xs.shape[0])[:workload.SVGP_BATCH]
+        batches.append(tuple(torch.as_tensor(a[rows], **like) for a in (Xs, Ys)))
+    lr = workload.SVGP_LR
+
+    def steps(optimizer):
+        _, u, _, step = make_svgp_train_step(optimizer, lr)(model)
+        for Xb, Yb in batches:
+            step(Xb, Yb)
+        return u.detach()
+
+    u_default, secs_d, ld = counted("SVGP default steps", lambda: steps(None), ("B1", "B2"))
+    u_adam = steps(lambda p: torch.optim.Adam(p, lr=lr, betas=(0.9, 0.999), eps=1e-8))
+    packer, u, opt, step = make_svgp_train_step(lambda p: torch.optim.SGD(p, lr=lr))(model)
+    u0 = u.detach().clone()
+    Xb, Yb = batches[0]
+    u_grad = u0.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(-packer.unpack(u_grad, reference=model).elbo(Xb, Yb), u_grad)
+    want = u0.add(g, alpha=-lr)
+    _, secs_s, ls = counted("SVGP SGD step", lambda: step(Xb, Yb), ("B1", "B2"))
+    sgd_err = float((u.detach() - want).abs().max() / want.abs().max())
+    print(f"# calls (b), make_svgp_train_step(optimizer=...) at phase 9's setting (N="
+          f"{Xs.shape[0]}, M={model.Z.shape[0]}, batch {workload.SVGP_BATCH}, lr {lr:g}, "
+          f"{model.Z.dtype}): the default factory's 3 steps "
+          f"{secs_d:.3f} s, launches {ld}, bit for bit Adam at optax's settings "
+          f"{bool(torch.equal(u_default, u_adam))}; {type(opt).__name__} factory, step 1 "
+          f"{secs_s:.3f} s, launches {ls}, max |u1 - (u0 - lr grad)| / max |u1| {sgd_err:.3e} "
+          f"(bit for bit {bool(torch.equal(u.detach(), want))})")
+    if not torch.equal(u_default, u_adam):
+        raise AssertionError("calls (b): the default factory is not Adam at optax's settings")
+    if sgd_err > torch.finfo(want.dtype).eps:
+        raise AssertionError("calls (b): the SGD factory's step is not u0 - lr * grad")
+    for name, launches in (("default", ld), ("SGD", ls)):
+        if launches["B2 dX"] - launches["B2 dZ"] <= 0:
+            raise AssertionError(f"calls (b), {name}: B2's row pass was never launched")
+
+    # (c) ensemble_sample(init=...) on the ES representers' log-density
+    es = AcquisitionEntropySearchEPMGP(GPModel.from_fitted(fitted), space)
+    log_p = es._log_p(*es.model.device_state())
+    new = dict(dtype=fitted.X.dtype, device=fitted.X.device)
+    lower, upper = (torch.full((d,), b, **new) for b in workload.BOX)
+    walkers = es.num_representer_points + es.num_representer_points % 2
+    draws = ensemble_draws(lower, upper, walkers, es.burn_in_steps,
+                           torch.Generator(device=dev).manual_seed(3))
+    init = lower + (upper - lower) * torch.rand(
+        (walkers, d), generator=torch.Generator(device=dev).manual_seed(4), **new)
+    (chain, _), secs_e, le = counted("ensemble_sample(init=)", lambda: ensemble_sample(
+        log_p, lower, upper, walkers, es.burn_in_steps, None, 2.0, init, draws=draws), ("B1",))
+    same, _ = ensemble_sample(log_p, lower, upper, walkers, es.burn_in_steps,
+                              draws=dataclasses.replace(draws, init=init))
+    print(f"# calls (c), ensemble_sample(init=...) on ES_EPMGP's log-density ({walkers} walkers, "
+          f"{es.burn_in_steps} steps): {secs_e:.3f} s, launches {le}; the chain of the same "
+          f"draws started at init, bit for bit {bool(torch.equal(chain, same))}; first step's "
+          f"walkers moved from init {int((chain[0] != init).any(-1).sum())} of {walkers}")
+    if not torch.equal(chain, same) or not bool(torch.isfinite(chain).all()):
+        raise AssertionError("calls (c): ensemble_sample(init=) is not the chain from init")
+
+    # (d) BO(normalization_type=...): the reference normalizes by stats either way
+    X, Y = workload.bench_data()
+
+    def suggest(normalization_type):
+        gm = GPModel(max_iters=workload.FIT_STEPS, optimize_restarts=workload.FIT_RESTARTS,
+                     ARD=True, device=dev, dtype=fitted.X.dtype)
+        acq = AcquisitionEI(gm, space, AcquisitionOptimizer(space, model=gm))
+        bo = BO(gm, space, None, acq, Sequential(acq), X, Y,
+                normalization_type=normalization_type)
+        return bo.suggest_next_locations()
+
+    x_max, secs_m, lm = counted('BO normalization_type="maxmin"', lambda: suggest("maxmin"),
+                                ("B1", "B2", "B3"))
+    x_sta, secs_t, lt = counted('BO normalization_type="stats"', lambda: suggest("stats"),
+                                ("B1", "B2", "B3"))
+    _in_box("calls (d)", x_max)
+    print(f'# calls (d), BO(normalization_type=...).suggest_next_locations() at N={X.shape[0]} '
+          f'({workload.FIT_RESTARTS} x {workload.FIT_STEPS} fit, EI): "maxmin" {secs_m:.3f} s, '
+          f'launches {lm}; "stats" {secs_t:.3f} s, '
+          f'launches {lt}; batch {x_max.tolist()}, equal {bool(np.array_equal(x_max, x_sta))}')
+    if not np.array_equal(x_max, x_sta):
+        raise AssertionError("calls (d): maxmin and stats gave different batches")
+    print(f"# calls: phase 4c took {_now() - t_phase:.1f} s; launches {total}")
+    return total
+
+
 # The f32 thesis -LML against float64 on the matrix the f32 factor does
 # represent, L L^T: what is left is the rounding of the logdet and the half
 # solve. About 10x the reading on an H100, rel 1.92e-6.
@@ -1342,6 +1528,7 @@ def _bench_cost(x):
 # script past 1000 s of its 1200 on a slow host (a cut of depth).
 HARTMANN6_ITERS = 10
 BRANIN_ITERS = 12
+LOOP_TIMEOUT_S = 900          # from their start, for both runs together
 
 _LOOP_CHILD = """
 import json, sys, time
@@ -1359,25 +1546,60 @@ print("RESULT::" + json.dumps({{
 """
 
 
-def phase_loop_protocol():
+def start_loop_protocol():
     """Leg A: the canonical drive script, on the default device in float32. At
-    N <= 35 a run is a host loop of small launches, so the two runs go side by
-    side, each in an interpreter of its own; nothing else runs meanwhile."""
-    stored = json.loads((ROOT / "benchmarks" / "regret_raw.json").read_text())["cpu_f64"]
+    N <= 35 a run is a host loop of small launches that leaves the card idle
+    most of the time, so the two runs start in interpreters of their own, one
+    host thread each, and go on beside phases 10-13; ``phase_loop_protocol``
+    waits for them and holds their results. Their output goes to temporary
+    files, so that no pipe fills while they run."""
+    import tempfile
+
     runs = (("branin", BRANIN_ITERS), ("hartmann6", HARTMANN6_ITERS))
+    started = []
+    for name, iters in runs:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        child = subprocess.Popen(
+            [sys.executable, "-c", _LOOP_CHILD.format(root=str(ROOT), name=name, iters=iters)],
+            stdout=out, stderr=err, text=True, cwd=ROOT,
+            env={**os.environ, "OMP_NUM_THREADS": "1"})
+        started.append((name, iters, child, out, err))
+    print(f"# loop: branin ({BRANIN_ITERS} iterations) and hartmann6 ({HARTMANN6_ITERS}) "
+          f"started beside phases 10-13, one host thread each")
+    return started, time.perf_counter()
+
+
+def _stop(started):
+    for _, _, child, _, _ in started:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def phase_loop_protocol(started, t_start):
+    """Leg A's end: waits for the runs ``start_loop_protocol`` began, then holds
+    each as the protocol asks."""
+    stored = json.loads((ROOT / "benchmarks" / "regret_raw.json").read_text())["cpu_f64"]
     # the stored runs' largest regret after as many evaluations as this run makes
     limit = max(row[5 + HARTMANN6_ITERS - 1] for row in stored["hartmann6"])
-    children = [subprocess.Popen(
-        [sys.executable, "-c", _LOOP_CHILD.format(root=str(ROOT), name=name, iters=iters)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
-        for name, iters in runs]
+    t_wait = time.perf_counter()
     try:
-        outputs = [child.communicate(timeout=900) for child in children]
+        for _, _, child, _, _ in started:
+            child.wait(timeout=max(1.0, LOOP_TIMEOUT_S - (time.perf_counter() - t_start)))
     finally:
-        for child in children:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+        _stop(started)
+    t_end = time.perf_counter()
+    print(f"# loop: the script waited {t_end - t_wait:.1f} s for the runs after phase 13, "
+          f"{t_wait - t_start:.1f} s after it started them (each run's own time below)")
+    outputs = []
+    for _, _, _, out, err in started:
+        out.seek(0)
+        err.seek(0)
+        outputs.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    runs = [(name, iters) for name, iters, _, _, _ in started]
+    children = [child for _, _, child, _, _ in started]
     for (name, iters), child, (out, err) in zip(runs, children, outputs):
         lines = [line for line in out.splitlines() if line.startswith("RESULT::")]
         if child.returncode != 0 or not lines:
@@ -1387,11 +1609,13 @@ def phase_loop_protocol():
             raise AssertionError(f"loop {name}: a surrogate fit failed")
         r = json.loads(lines[0][len("RESULT::"):])
         print(f"# loop {name} (latin 5, EI, exact_feval, {iters} iterations, {r['dtype']}, "
-              f"{r['device']}; beside the other run): {r['total']:.2f} s; per iteration fit "
+              f"{r['device']}; beside the other run and phases 10-13): {r['total']:.2f} s; "
+              f"per iteration fit "
               f"{r['seconds']['fit'] / (iters + 1):.3f} s, acquisition "
               f"{r['seconds']['acquisition'] / iters:.3f} s; fx_opt {r['fx_opt']:.6f}, final "
               f"regret {r['regret'][-1]:.6f}; ladder rungs {r['rungs']}; LML trials of each "
-              f"bucket's last fit {r['fit_evaluations']}")
+              f"bucket's last fit {r['fit_evaluations']}; regret per evaluation "
+              f"{[round(v, 6) for v in r['regret']]}")
         if r["device"] != "cuda" or r["dtype"] != "torch.float32":
             raise AssertionError(f"loop {name}: ran on {r['device']} in {r['dtype']}")
         if r["evaluations"] != 5 + iters or r["fit_failed"]:
@@ -1573,6 +1797,7 @@ LOGP_F32_LIMIT = 1e-3         # EPMGP logP, f32 vs f64 on the same mu and Sigma 
 # tests/test_torch_sparse.py::test_f32_bound_error_is_the_references)
 SPARSE_BOUND_LIMIT = 1e-3
 SPARSE_PREDICT_LIMIT = 0.05   # |prediction - truth| at 5 points after the fit
+SPARSE_BO_STEPS = 200         # sparseGP's fit through BO, cut from GPyOpt's 1000 (depth)
 # warped -LML at the fitted parameters, f32 vs f64 (relative), per model. The
 # leg also reads it through the plain K on the card and on the CPU at the same
 # leaves, and a control each limit must catch: the card's float32 -LML with
@@ -1598,6 +1823,11 @@ WARPED_CONTROL_SHIFT = 1e-2
 # in the port (both accept 0.00 at N = 1024). 0.005 puts it at 0.63; the other
 # settings stay GPyOpt's.
 MCMC_STEP = 0.005
+# The chain's depth, cut from GPyOpt's burn-in of 100 and interval of 10 (200
+# HMC steps, ~49 s on the card) to 50 and 5 (100 steps) to keep the script
+# inside its time limit; the 10 samples stay, so the S lanes keep their width.
+MCMC_BURNIN = 50
+MCMC_INTERVAL = 5
 
 
 def _leg_mcmc(dev, X, Y):
@@ -1615,15 +1845,18 @@ def _leg_mcmc(dev, X, Y):
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
     _zero_counts()
-    bo = workload.surrogate_bo(X, Y, "GP_MCMC", "EI_MCMC", step_size=MCMC_STEP)
+    bo = workload.surrogate_bo(X, Y, "GP_MCMC", "EI_MCMC", step_size=MCMC_STEP,
+                               n_burnin=MCMC_BURNIN, subsample_interval=MCMC_INTERVAL)
     it = workload.surrogate_iteration(bo)
     launches = _read_counts()
     model = bo.model
     print(f"# surrogates, MCMC (N={len(X)}, D={X.shape[1]}, GP_MCMC + EI_MCMC, n_samples 10, "
-          f"n_burnin 100, interval 10, step {MCMC_STEP} (GPyOpt's 0.1 rejects every proposal "
+          f"n_burnin {MCMC_BURNIN}, interval {MCMC_INTERVAL} (cut from 100 and 10: depth), "
+          f"step {MCMC_STEP} (GPyOpt's 0.1 rejects every proposal "
           f"at this N), 20 leapfrog steps, {model.dtype} on "
           f"{model.device.type}): fit {it.seconds['fit']:.3f} s, HMC {it.seconds['hmc']:.3f} s "
-          f"(200 steps), S-lane posterior {it.seconds['posterior']:.3f} s, argmax "
+          f"({MCMC_BURNIN + 10 * MCMC_INTERVAL} steps), S-lane posterior "
+          f"{it.seconds['posterior']:.3f} s, argmax "
           f"{it.seconds['argmax']:.3f} s; accept rate {model.accept_rate:.3f}; launches "
           f"{launches}; suggestion {it.batch.tolist()}")
     if model.device.type != dev.type or model.dtype != torch.float32:
@@ -1754,9 +1987,11 @@ def _leg_sparse(X, Y):
         raise AssertionError("sparse: B1, or B2's row pass at Kmn, was never launched")
 
     _zero_counts()
-    it = workload.surrogate_iteration(workload.surrogate_bo(X, Y, "sparseGP", num_inducing=256))
+    it = workload.surrogate_iteration(workload.surrogate_bo(X, Y, "sparseGP", num_inducing=256,
+                                                            max_iters=SPARSE_BO_STEPS))
     bo_launches = _read_counts()
-    print(f"# surrogates, sparseGP + EI on the main data (M=256, 5 restarts x 1000 steps): fit "
+    print(f"# surrogates, sparseGP + EI on the main data (M=256, 5 restarts x {SPARSE_BO_STEPS} "
+          f"steps, cut from 1000: depth): fit "
           f"{it.seconds['fit']:.3f} s, argmax {it.seconds['argmax']:.3f} s; launches "
           f"{bo_launches}; suggestion {it.batch.tolist()}")
     _in_box("sparseGP", it.batch)
@@ -1919,15 +2154,16 @@ def _gate_launches(leg, launches, keys=("B1", "B2")):
             raise AssertionError(f"{leg}: kernel {k} was never launched")
 
 
-def _stage_swaps(name, measure, measure_cpu, keys):
+def _stage_swaps(name, measure, measure_cpu, keys, configs=None):
     """The float32 readings of ``measure`` with one stage at a time on the
     host's CPU in float32 (K build, ladder Cholesky, triangular solves;
-    ``prof_stages``), and of ``measure_cpu``, the model on the CPU entirely;
-    each with the rungs its ladder settled on (ROADMAP C10, C11, C13)."""
+    ``prof_stages``; ``configs``, by default all of ``prof_stages.CONFIGS``),
+    and of ``measure_cpu``, the model on the CPU entirely; each with the rungs
+    its ladder settled on (ROADMAP C10, C11, C13)."""
     from gaussian_process_optimization_tpu_torch import prof_stages
 
     t0 = _now()
-    rows = prof_stages.readings(measure) + prof_stages.readings(
+    rows = prof_stages.readings(measure, configs or prof_stages.CONFIGS) + prof_stages.readings(
         measure_cpu, (("CPU entirely", ()),))
     print(f"# {name}, stage swaps ({_now() - t0:.1f} s): "
           f"{prof_stages.format_readings(rows, keys)}")
@@ -2370,7 +2606,7 @@ GRID_DENSE_LIMIT = 1e-9       # float64 grid -LML against the dense GP's
 SS_LML_LIMIT = 9.6e-6
 SS_GRAD_LIMIT = 3.8e-2
 SS_DENSE_LIMIT = 1e-9         # float64 Matern32 state-space -LML against the dense GP's
-SS_FIT_STEPS = 2              # the state-space fit's depth (a cut: 6-11 s an evaluation)
+SS_FIT_STEPS = 1              # the state-space fit's depth (a cut: 6-11 s an evaluation)
 # Leg 5: the JAX package's own float32 error against float64 at N = 64 on the
 # CPU, per kernel, (K, gradient), as tests/test_torch_zoo_f32.py::
 # test_f32_error_is_the_references prints it (workload.zoo_cases's inputs).
@@ -2505,6 +2741,12 @@ def _leg_icm(n, restarts, steps, where, failures):
     return launches, fitted, Xs
 
 
+# C11's readings at the ICM fitted point: each stage alone, all three and the
+# blocked Cholesky; the three pairs (~16 s on the host's CPU) are cut to keep
+# the script inside its time limit (prof_stages.CONFIGS has them all)
+ICM_STAGES_CUT = ("K + Cholesky on host", "K + solves on host", "Cholesky + solves on host")
+
+
 def _icm_stage_swaps(fitted):
     """C11: the -LML (at the f32 ladder's jitter) and the gradient error of its
     terms at the fitted point, with one stage at a time on the host."""
@@ -2512,6 +2754,7 @@ def _icm_stage_swaps(fitted):
 
     from gaussian_process_optimization_tpu_torch.models.fit import make_objective
     from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
+    from gaussian_process_optimization_tpu_torch.prof_stages import CONFIGS
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
     f64m = _f64(fitted)
@@ -2533,7 +2776,8 @@ def _icm_stage_swaps(fitted):
 
     _stage_swaps("zoo, leg 1 ICM at the fitted point (-LML rel at the f32 ladder's jitter, "
                  "gradient of its terms)", lambda: measure(fitted),
-                 lambda: measure(tree_map(lambda t: t.cpu(), fitted)), ("lml", "grad"))
+                 lambda: measure(tree_map(lambda t: t.cpu(), fitted)), ("lml", "grad"),
+                 tuple(c for c in CONFIGS if c[0] not in ICM_STAGES_CUT))
 
 
 def _leg_co2(n, restarts, steps, where, failures):
@@ -3412,7 +3656,7 @@ def _leg_sharded_sparse(dev, mesh, acc, failures):
     _, init, step = sharded.make_sharded_svgp_step(m, mesh, learning_rate=workload.SVGP_LR)
     _, init64, step64 = sharded.make_sharded_svgp_step(_f64(m), mesh,
                                                        learning_rate=workload.SVGP_LR)
-    _, _, _, ustep = make_svgp_train_step(workload.SVGP_LR)(m)
+    _, _, _, ustep = make_svgp_train_step(learning_rate=workload.SVGP_LR)(m)
     u, opt = init(m)
     u64, opt64 = init64(_f64(m))
     rows = []
@@ -3509,7 +3753,7 @@ def _leg_sharded_fit(dev, mesh, acc, failures):
     # the same acquisition on the same fitted model and sweep, without the mesh
     opt._seed, opt.mesh = seed0, None
     with pt("acquisition argmax, no mesh"):
-        xa, fa = opt.optimize(bo.acquisition)
+        xa, fa = opt.optimize(acquisition=bo.acquisition)
     opt.mesh = mesh
     f_mesh = float(bo.acquisition.acquisition_function(x)[0, 0])
     print(f"# sharded, suggestion -EI f32 mesh vs no mesh (same model): {f_mesh:.6f} vs "
@@ -3541,10 +3785,10 @@ def _leg_sharded_fit(dev, mesh, acc, failures):
             o64 = b64.acquisition_optimizer
             s64 = o64._seed
             with pt("acquisition argmax f64, mesh"):
-                _, f64_mesh = o64.optimize(b64.acquisition)
+                _, f64_mesh = o64.optimize(acquisition=b64.acquisition)
             o64._seed, o64.mesh = s64, None
             with pt("acquisition argmax f64, no mesh"):
-                _, f64_plain = o64.optimize(b64.acquisition)
+                _, f64_plain = o64.optimize(acquisition=b64.acquisition)
             o64.mesh = mesh
     _check("BO fit -LML f64 mesh vs no mesh", fits64[0], fits64[1], SHARDED_BO_F64_LIMIT,
            failures)
@@ -3693,35 +3937,45 @@ def _four_families(found):
             and sorted(f[0] for f in found) == [0, 1, 2, 3])
 
 
+def _first_round_items(data, inputs):
+    """The lanes of ``utils/cluster.cluster``'s first round, in its order: each
+    series alone, then each pair with every earlier series."""
+    data = [np.asarray(d, dtype=float) for d in data]
+    inputs = [np.asarray(x, dtype=float) for x in inputs]
+    items = []
+    for i in range(len(data)):
+        items.append((inputs[i], data[i].T, np.zeros(inputs[i].shape[0])))
+        for j in range(i):
+            items.append((np.vstack([inputs[i], inputs[j]]), np.vstack([data[i].T, data[j].T]),
+                          np.concatenate([np.zeros(inputs[i].shape[0]),
+                                          np.ones(inputs[j].shape[0])])))
+    return items
+
+
 def _leg_cluster(acc, failures):
     """Offset-GP clustering of CLUSTER_SERIES series (first round: all
     singles and pairs, 820 lanes at n_max = 800), no device given, each lane
-    fit cut to CLUSTER_MAXITER L-BFGS steps: in float32 (a reading of its
-    groups; the first round's lane log likelihoods against float64 at the
-    same leaves, gated, with a control), then in float64 on the card, which
-    must find the four families (``prof_stages --cluster`` prints each
-    float32 join beside float64)."""
+    fit cut to CLUSTER_MAXITER L-BFGS steps: the first round in float32 (its
+    lane log likelihoods against float64 at the same leaves, gated, with a
+    control; the float32 clustering's later rounds are cut, a cut of depth:
+    ``prof_stages --cluster`` runs it to its end and prints each join beside
+    float64), then the whole clustering in float64 on the card, which must
+    find the four families."""
     from gaussian_process_optimization_tpu_torch import workload
+    from gaussian_process_optimization_tpu_torch.prof_stages import refit
     from gaussian_process_optimization_tpu_torch.utils.cluster import (cluster, f32_effective,
                                                                        lane_lml)
 
     data, inputs, fam = workload.cluster_data(CLUSTER_SERIES, CLUSTER_POINTS)
-    history = []
+    items = _first_round_items(data, inputs)
     t0 = _now()
     with _Counted(acc):
-        groups = cluster([d.copy() for d in data], [x.copy() for x in inputs],
-                         maxiter=CLUSTER_MAXITER, history=history)
+        ll32, U = refit(items, CLUSTER_MAXITER, n_max=CLUSTER_SERIES * CLUSTER_POINTS)
     t1 = _now()
-    found = _family_sets(groups, fam)
-    print(f"# cluster f32: {CLUSTER_SERIES} series x {CLUSTER_POINTS} points, first round "
-          f"{CLUSTER_SERIES * (CLUSTER_SERIES + 1) // 2} lanes at n_max "
-          f"{CLUSTER_SERIES * CLUSTER_POINTS}, {len(history)} rounds of at most "
-          f"{CLUSTER_MAXITER} steps: {t1 - t0:.2f} s, {len(groups)} groups, families per "
-          f"group {found}, sizes {[len(g) for g in groups]} (a reading; four families: "
-          f"{_four_families(found)})")
-    first = history[0]
-    U, items = np.stack([f[2] for f in first]), [f[1] for f in first]
-    ll32 = np.array([f[3] for f in first])
+    U = U.astype(np.float32)      # the float32 leaves, exactly
+    print(f"# cluster f32: {CLUSTER_SERIES} series x {CLUSTER_POINTS} points, the first round's "
+          f"{len(items)} lanes at n_max {CLUSTER_SERIES * CLUSTER_POINTS}, {CLUSTER_MAXITER} "
+          f"steps: {t1 - t0:.2f} s (the later rounds cut: depth)")
     ll64 = lane_lml(f32_effective(U), items, dtype=torch.float64)
     # the control: the float32 lanes with their offsets dropped
     no_offset = U.copy()
@@ -3733,7 +3987,7 @@ def _leg_cluster(acc, failures):
 
     CLUSTER_FITTED.parent.mkdir(exist_ok=True)
     np.savez_compressed(CLUSTER_FITTED, U=U, ll32=ll32, ll64=ll64)
-    print(f"# cluster f32, first round's {len(first)} lane log likelihoods against float64 at "
+    print(f"# cluster f32, first round's {len(items)} lane log likelihoods against float64 at "
           f"the same leaves and noise: max |diff| / max |LL64| {rel(ll32):.3e} (limit "
           f"{CLUSTER_LL_LIMIT:.3g}; leaves in {CLUSTER_FITTED}); the control, the same lanes "
           f"with their offsets dropped, {rel(control):.3e} (must exceed it)")
@@ -4023,7 +4277,6 @@ def _leg_example_scripts(failures, seconds):
     to what the reference's test checks. The BO examples run one iteration,
     large_scale_sparse its full N with the SVGP cut to EXAMPLES_SVGP_STEPS; plots
     go through the 'none' backend (no drawing library on the card's machine)."""
-    import os
     import tempfile
 
     from gaussian_process_optimization_tpu_torch.bo import objectives
@@ -4142,34 +4395,73 @@ def phase_examples():
     return launches
 
 
+class _PhaseClock:
+    """The script's wall time by phase, on the host's clock."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+        self.laps = []
+
+    def lap(self, name):
+        t = time.perf_counter()
+        self.laps.append((name, t - self.t))
+        self.t = t
+
+    def report(self):
+        split = ", ".join(f"{name} {s:.1f}" for name, s in self.laps)
+        print(f"# wall time by phase (s): {split}; total {time.perf_counter() - self.t0:.1f} s")
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda", 0)
+    clock = _PhaseClock()
     phase_default_device()
     phase_build()
+    clock.lap("1-2 device and build")
     rows = phase_kernels(dev)
     gplvm_row = _gplvm_kernel_row(dev)
     rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], gplvm_row["max_abs_err"])
+    clock.lap("3 kernels")
     launches, fitted, post, res = phase_main(dev)
     rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"],
                                     phase_tri_inv_on_main_path(post.L))
+    clock.lap("4-5 main")
     option_launches = phase_fit_options(dev, fitted, res)
+    clock.lap("4b options")
+    call_launches = phase_calls(dev, fitted)
+    clock.lap("4c calls")
     del res
     thesis_launches, b4_err = phase_thesis(dev)
     rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_err)
+    clock.lap("6 thesis")
     composite_launches = phase_composite(dev)
+    clock.lap("7 composite")
     surrogate_launches = phase_surrogates(dev, fitted, post)
+    clock.lap("8 surrogates")
     approximate_launches = phase_approximate(fitted)
+    clock.lap("9 approximate")
     del fitted, post
-    zoo_launches = phase_zoo(dev)
-    latent_launches = phase_latent()
-    sharded_launches, cluster_launches, sharded_errs, b4_sharded_err = phase_sharded(dev)
-    rows["B1"]["max_abs_err"] = max(rows["B1"]["max_abs_err"], sharded_errs[0], sharded_errs[1])
-    rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], *sharded_errs[2:])
-    rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_sharded_err)
-    example_launches = phase_examples()
-    phase_loop_protocol()
+    loop = start_loop_protocol()
+    try:
+        zoo_launches = phase_zoo(dev)
+        clock.lap("10 zoo")
+        latent_launches = phase_latent()
+        clock.lap("11 latent")
+        sharded_launches, cluster_launches, sharded_errs, b4_sharded_err = phase_sharded(dev)
+        clock.lap("12 sharded")
+        rows["B1"]["max_abs_err"] = max(rows["B1"]["max_abs_err"], sharded_errs[0],
+                                        sharded_errs[1])
+        rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], *sharded_errs[2:])
+        rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], b4_sharded_err)
+        example_launches = phase_examples()
+        clock.lap("13 examples")
+        phase_loop_protocol(*loop)
+        clock.lap("7 loop (the wait)")
+    finally:
+        _stop(loop[0])
+    clock.report()
     # B1 and B2 run on the main, composite, surrogate, approximate and zoo paths,
     # B4 on the thesis path, B3 on all but the sparse leg; "launches" is the main
     # path's count (B4: the thesis path's)
@@ -4200,6 +4492,7 @@ def main():
                         "launches_cluster": cluster_launches[key],
                         "launches_examples": example_launches[key],
                         "launches_options": option_launches[key],
+                        "launches_calls": call_launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_us": r["bound_us"], "bound_by": r["bound_by"],

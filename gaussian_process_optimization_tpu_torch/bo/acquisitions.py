@@ -168,8 +168,21 @@ class AcquisitionBase:
         return -f_acq_cost * ind, -df_acq_cost * ind
 
     def optimize(self, duplicate_manager=None):
-        """(base.py:52): (x (1, model_dim), f (1, 1)) from the optimizer."""
-        return self.optimizer.optimize(self, duplicate_manager=duplicate_manager)
+        """(base.py:52): (x (1, model_dim), f (1, 1)) from the optimizer, called
+        as the reference calls it: a host-only surrogate (the forest) gives
+        ``f`` alone, and so does an acquisition without analytical gradients;
+        the others give ``f_df`` too. Both give the acquisition where it has
+        tensor state, for the device path."""
+        if not self.supports_device:
+            return self.optimizer.optimize(f=self.acquisition_function,
+                                           duplicate_manager=duplicate_manager)
+        if not self.analytical_gradient_acq:
+            return self.optimizer.optimize(f=self.acquisition_function,
+                                           duplicate_manager=duplicate_manager,
+                                           acquisition=self)
+        return self.optimizer.optimize(f=self.acquisition_function,
+                                       f_df=self.acquisition_function_withGradients,
+                                       duplicate_manager=duplicate_manager, acquisition=self)
 
 
 class AcquisitionEI(AcquisitionBase):
@@ -301,3 +314,9 @@ class AcquisitionLP(AcquisitionBase):
     def acquisition_function_withGradients(self, x):
         f, df = self._compute_acq_withGradients_device(x)
         return -f, -df
+
+    def optimize(self, duplicate_manager=None):
+        """(acquisitions.py:339): always with ``f_df`` and the acquisition."""
+        return self.optimizer.optimize(f=self.acquisition_function,
+                                       f_df=self.acquisition_function_withGradients,
+                                       duplicate_manager=duplicate_manager, acquisition=self)

@@ -25,7 +25,7 @@ from .optimizer import ContextManager
 class BO:
     def __init__(self, model, space, objective, acquisition, evaluator, X_init,
                  Y_init=None, cost=None, normalize_Y=True, model_update_interval=1,
-                 de_duplication=False):
+                 de_duplication=False, normalization_type="stats"):
         self.model = model
         self.space = space
         self.objective = objective
@@ -37,6 +37,7 @@ class BO:
         self.normalize_Y = normalize_Y
         self.model_update_interval = model_update_interval
         self.de_duplication = de_duplication
+        self.normalization_type = normalization_type
         self.num_acquisitions = 0
         self.model_parameters_iterations = None
         self.suggested_sample = None
@@ -52,7 +53,7 @@ class BO:
         self.model_parameters_iterations = None
         self.num_acquisitions = 0
         self.context = context
-        self._update_model()
+        self._update_model(self.normalization_type)
         return self._compute_next_evaluations(pending_zipped_X=pending_X,
                                               ignored_zipped_X=ignored_X)
 
@@ -77,7 +78,7 @@ class BO:
         self.seconds = {"fit": 0.0, "acquisition": 0.0, "objective": 0.0}
         while self.max_time > self.cum_time:
             zero_time = time.time()
-            self._update_model()
+            self._update_model(self.normalization_type)
             self.seconds["fit"] += time.time() - zero_time
             if self._fit_failed:
                 break
@@ -116,9 +117,11 @@ class BO:
         """(bo.py:207)"""
         return np.sqrt(np.sum((self.X[-1, :] - self.X[-2, :]) ** 2))
 
-    def _update_model(self):
+    def _update_model(self, normalization_type="stats"):
         """Fit the surrogate on (unzipped X, normalized Y) (bo.py:236-254), with
-        one retry when the posterior factorization fails."""
+        one retry when the posterior factorization fails. Y is normalized by
+        ``normalize_stats`` whatever ``normalization_type`` says, as in the
+        reference (bo_loop.py:161-167)."""
         if self.num_acquisitions % self.model_update_interval != 0:
             return
         t0 = time.perf_counter()

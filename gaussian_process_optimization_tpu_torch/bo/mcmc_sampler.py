@@ -46,16 +46,22 @@ def ensemble_draws(lower, upper, n_walkers: int, n_steps: int,
     return EnsembleDraws(init=init, u=u, partner=partner, log_u=log_u)
 
 
-def ensemble_sample(log_prob_fn, lower, upper, n_walkers: int, n_steps: int, a: float = 2.0,
-                    generator: torch.Generator | None = None,
+def ensemble_sample(log_prob_fn, lower, upper, n_walkers: int, n_steps: int,
+                    generator: torch.Generator | None = None, a: float = 2.0, init=None, *,
                     draws: EnsembleDraws | None = None):
     """Sample exp(log_prob) over the box [lower, upper]. ``log_prob_fn`` takes
     ``(n, d)`` and gives ``(n,)``; a proposal outside the box gets -inf, as the
-    reference bounds its walkers to the domain. Returns ``(chain (n_steps,
+    reference bounds its walkers to the domain. The walkers start at ``init``
+    ``(n_walkers, d)`` where it is given, else at the draws' uniform ones; the
+    draws are made all the same, so the moves do not depend on ``init``, as
+    the reference's key split keeps them apart. Returns ``(chain (n_steps,
     n_walkers, d), final walkers)``."""
     d = lower.shape[0]
     if draws is None:
         draws = ensemble_draws(lower, upper, n_walkers, n_steps, generator)
+    if init is not None:
+        draws = dataclasses.replace(draws, init=torch.as_tensor(
+            init, dtype=lower.dtype, device=lower.device))
     half = n_walkers // 2
     halves = (torch.arange(half, device=lower.device),
               torch.arange(half, n_walkers, device=lower.device))

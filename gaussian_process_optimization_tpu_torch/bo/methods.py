@@ -124,9 +124,9 @@ class ArgumentsManager:
                                                  cost_withGradients=cost_withGradients)
         raise InvalidConfigError(f"unknown acquisition type {acquisition_type!r}")
 
-    def evaluator_creator(self, evaluator_type, acquisition, batch_size, model, space,
-                          acquisition_optimizer):
-        """(arguments_manager.py:17)"""
+    def evaluator_creator(self, evaluator_type, acquisition, batch_size, model_type, model,
+                          space, acquisition_optimizer):
+        """(arguments_manager.py:17); ``model_type`` is unused, as in the reference."""
         evaluator_type = evaluator_type or "sequential"
         if batch_size == 1 or evaluator_type == "sequential":
             return Sequential(acquisition)
@@ -194,8 +194,8 @@ class BayesianOptimization(BO):
             acquisition_type, model, self.space, self.acquisition_optimizer,
             self.cost.cost_withGradients)
         self.evaluator_type = evaluator_type
-        evaluator = args.evaluator_creator(evaluator_type, acquisition, batch_size, model,
-                                           self.space, self.acquisition_optimizer)
+        evaluator = args.evaluator_creator(evaluator_type, acquisition, batch_size, model_type,
+                                           model, self.space, self.acquisition_optimizer)
         super().__init__(model=model, space=self.space, objective=self.objective,
                          acquisition=evaluator.acquisition, evaluator=evaluator, X_init=X,
                          Y_init=Y, cost=self.cost, normalize_Y=normalize_Y,

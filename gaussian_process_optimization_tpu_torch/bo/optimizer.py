@@ -4,15 +4,17 @@ GPyOpt optimization/acquisition_optimizer.py:16 ``AcquisitionOptimizer``,
 
 Two paths, chosen as the reference chooses (``optimize``):
 
-- the device path (optimizer ``'lbfgs'``, no evaluation cost): a sweep of the
+- the device path (an ``acquisition`` with tensor state, optimizer ``'lbfgs'``,
+  no evaluation cost): a sweep of the
   space by an experiment design, the best few sweep points as anchors,
   box-bounded L-BFGS from every anchor at once (the anchors are the lanes of
   one ``ops/lbfgs.minimize`` call, value and gradient by autograd), then
   rounding to the mixed space, re-scoring, and the de-duplicated minimum;
-- the host path (``optimize_host``: ``'lbfgs_host'``, ``'DIRECT'``, ``'CMA'``, or
-  any optimizer when the acquisition carries a cost): GPyOpt's own flow, the
-  anchors scored by the host acquisition and scipy L-BFGS-B (or DIRECT, or
-  CMA-ES) from each anchor, one point per call of the acquisition.
+- the host path (``optimize_host``: ``'lbfgs_host'``, ``'DIRECT'``, ``'CMA'``,
+  any optimizer when the acquisition carries a cost, or no ``acquisition``):
+  GPyOpt's own flow on the functions the caller gives, the anchors scored by
+  ``f`` and scipy L-BFGS-B (on ``f_df``, or on ``f`` alone with scipy's
+  differences) or DIRECT or CMA-ES from each anchor, one point per call.
 
 Context variables are held by collapsing their bounds to a point. With a
 ``mesh`` (``parallel/sharded.Mesh``) the device path shards the sweep's rows
@@ -65,10 +67,12 @@ class AcquisitionOptimizer:
     points, ``num_anchor`` anchors, ``maxiter`` L-BFGS steps. ``optimizer`` is
     'lbfgs' (the device path), 'lbfgs_host' (scipy L-BFGS-B on the host
     acquisition), 'DIRECT' or 'CMA'. The sweep's seed starts at ``seed`` and
-    steps by one per call. ``mesh`` shards the device path."""
+    steps by one per call. ``mesh`` shards the device path. Other keyword
+    arguments are taken and ignored, as in the reference."""
 
     def __init__(self, space, optimizer="lbfgs", model=None, design_type="random",
-                 num_samples=SWEEP, num_anchor=ANCHORS, maxiter=MAXITER, seed=0, mesh=None):
+                 num_samples=SWEEP, num_anchor=ANCHORS, maxiter=MAXITER, seed=0, mesh=None,
+                 **kwargs):
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown acquisition optimizer {optimizer!r}; "
                              f"one of {OPTIMIZERS}")
@@ -83,15 +87,16 @@ class AcquisitionOptimizer:
         self._seed = seed
         self.mesh = sharded.check_mesh(mesh)
 
-    def optimize(self, acq, duplicate_manager=None):
+    def optimize(self, f=None, df=None, f_df=None, duplicate_manager=None,
+                 acquisition=None):
         """(x_min (1, model_dim), fx_min (1, 1)) as numpy (:45-79): the device
-        path for 'lbfgs' without a cost on a surrogate with tensor state, else
-        the host path."""
-        if self.optimizer_name == "lbfgs" and not acq.has_cost and acq.supports_device:
-            return self._optimize_device(acq, duplicate_manager)
-        f_df = acq.acquisition_function_withGradients if acq.analytical_gradient_acq else None
-        return self.optimize_host(f=acq.acquisition_function, f_df=f_df,
-                                  duplicate_manager=duplicate_manager)
+        path for an ``acquisition`` with tensor state under 'lbfgs' without a
+        cost, else the host path on ``f`` and ``f_df`` (``df`` is unused, as
+        in the reference)."""
+        if (acquisition is not None and acquisition.supports_device
+                and self.optimizer_name == "lbfgs" and not acquisition.has_cost):
+            return self._optimize_device(acquisition, duplicate_manager)
+        return self.optimize_host(f=f, df=df, f_df=f_df, duplicate_manager=duplicate_manager)
 
     def _box(self):
         """The model-space box, context dimensions collapsed to their value."""
@@ -195,12 +200,13 @@ class AcquisitionOptimizer:
         return np.vstack([X, np.repeat(X[:1], n_pad - n, axis=0)]), n
 
     # ------------------------------------------------------------- host path
-    def optimize_host(self, f=None, f_df=None, duplicate_manager=None):
+    def optimize_host(self, f=None, df=None, f_df=None, duplicate_manager=None):
         """GPyOpt's own path: anchors scored by ``f``, then from each anchor
         scipy L-BFGS-B (optimizer.py OptLbfgs:28), DIRECT (OptDirect:64, run
         once: it does not start from an anchor) or CMA-ES (OptCma:97), and
         ``apply_optimizer``:130. ``f`` and ``f_df`` take ``(n, d)`` numpy
-        arrays."""
+        arrays; without ``f_df`` scipy differences ``f``. ``df`` is unused, as
+        in the reference."""
         import scipy.optimize
 
         anchor_gen = ObjectiveAnchorPointsGenerator(

@@ -76,8 +76,8 @@ class GPModel(BOModel):
 
     def __init__(self, kernel=None, noise_var=None, exact_feval=False, optimizer="lbfgs",
                  max_iters=1000, optimize_restarts=5, verbose=False, ARD=False, Gower=False,
-                 space=None, mean_function=None, priors=None, seed=0, device=None,
-                 dtype=None, generator=None, mesh=None):
+                 space=None, mean_function=None, seed=0, mesh=None, *, priors=None,
+                 device=None, dtype=None, generator=None):
         self.kernel_template = kernel
         self.noise_var = noise_var
         self.exact_feval = exact_feval

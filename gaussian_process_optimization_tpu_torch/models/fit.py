@@ -110,14 +110,16 @@ class Fitter:
     ``jitter_greedy``, through the L-BFGS aux channel, starting from the
     model's own hint; a mesh passes the rungs through with the lanes.
     ``trace`` (the port's, for ``plot_optimizer``) records each lane's
-    objective per step in the result's ``trace``."""
+    objective per step in the result's ``trace``. ``jit`` is taken and ignored:
+    the port runs eagerly. The parameters keep the reference's order; ``mesh``
+    and ``trace``, the port's own, are keyword-only."""
 
     def __init__(self, template_model: Any, num_restarts: int = 5, maxiter: int = 1000,
-                 tol: float = 1e-5, fix: tuple = (), transform_overrides: dict | None = None,
-                 priors: dict[str, Prior] | None = None, history: int = HISTORY,
-                 max_ls: int = MAX_LS, mesh=None, nonmonotone_eta: float = 0.0,
-                 grow_backtracked: float | None = None, thread_ladder: bool | None = None,
-                 trace: bool = False):
+                 fix: tuple = (), transform_overrides: dict | None = None,
+                 priors: dict[str, Prior] | None = None, tol: float = 1e-5,
+                 history: int = HISTORY, jit: bool = True, max_ls: int = MAX_LS,
+                 nonmonotone_eta: float = 0.0, grow_backtracked: float | None = None,
+                 thread_ladder: bool | None = None, *, mesh=None, trace: bool = False):
         if mesh is not None and num_restarts % mesh.shape["data"]:
             raise ValueError(f"{num_restarts} restarts do not split over "
                              f"{mesh.shape['data']} shards")
@@ -222,8 +224,9 @@ def checkgrad(model, fix: tuple = (), transform_overrides: dict | None = None, p
 def fit(model, num_restarts: int = 5, maxiter: int = 1000,
         generator: torch.Generator | None = None, fix: tuple = (),
         transform_overrides: dict | None = None, priors: dict[str, Prior] | None = None,
-        **kw):
-    """One-shot fit (GPy ``m.optimize_restarts(...)``): ``(fitted, LBFGSResult)``."""
+        jit: bool = True, **kw):
+    """One-shot fit (GPy ``m.optimize_restarts(...)``): ``(fitted, LBFGSResult)``.
+    ``jit`` is ignored (the port runs eagerly); ``kw`` goes to :class:`Fitter`."""
     fitter = Fitter(model, num_restarts=num_restarts, maxiter=maxiter, fix=fix,
-                    transform_overrides=transform_overrides, priors=priors, **kw)
+                    transform_overrides=transform_overrides, priors=priors, jit=jit, **kw)
     return fitter(model, generator)

@@ -405,7 +405,7 @@ class GPRegression:
         return samples
 
     def posterior_samples(self, Xnew, size: int, generator: torch.Generator | None = None,
-                          z: torch.Tensor | None = None, noise_at_test=None,
+                          noise_at_test=None, *, z: torch.Tensor | None = None,
                           posterior: Posterior | None = None):
         """``(M, size)`` samples of noisy observations (GPy gp.py:611). ``z`` is
         ``(2, M, size)``: the latent draws, then the noise draws."""
@@ -438,9 +438,10 @@ class GPRegression:
         mu, var = self.predict(x_test, posterior=posterior, noise_at_test=noise_at_test)
         return -0.5 * (LOG_2_PI + torch.log(var) + torch.square(y_test - mu) / var)
 
-    def log_predictive_density_sampling(self, x_test, y_test, num_samples: int = 1000,
+    def log_predictive_density_sampling(self, x_test, y_test,
                                         generator: torch.Generator | None = None,
-                                        z: torch.Tensor | None = None, noise_at_test=None,
+                                        num_samples: int = 1000, noise_at_test=None, *,
+                                        z: torch.Tensor | None = None,
                                         posterior: Posterior | None = None):
         """Monte Carlo log p(y* | D) = log mean_s p(y* | f_s), f_s ~ p(f* | D)
         (GPy gp.py:696), in original Y units. The standard normals ``z (M,

@@ -91,10 +91,12 @@ def gplvm_packer(model) -> Packer:
     return packer_for(model, fixed=DATA_NAMES - {"X"})
 
 
-def fit_gplvm(model, maxiter=500, priors=None):
-    """L-BFGS over the hyperparameters and the latent X, one lane. ``priors``:
-    field name -> Prior (``models/fit.make_objective``); ``{"X":
-    DGPLVMPrior(lbl=...)}`` gives the discriminative GPLVM (GPy priors.py:535)."""
+def fit_gplvm(model, maxiter=500, generator=None, priors=None):
+    """L-BFGS over the hyperparameters and the latent X, one lane from the
+    model's own X. ``priors``: field name -> Prior (``models/fit.make_objective``);
+    ``{"X": DGPLVMPrior(lbl=...)}`` gives the discriminative GPLVM (GPy
+    priors.py:535). ``generator`` is unused, as the reference's ``key`` is: the
+    lane draws nothing."""
     return minimize_one(gplvm_packer(model), model, maxiter, priors=priors)
 
 

@@ -7,7 +7,10 @@ with an identity mass matrix. The reference's ``lax.scan`` / ``fori_loop`` chain
 are Python loops over tensors here; each gradient of the potential comes from
 ``torch.autograd.grad`` through the model's LML. Draws come from a
 ``torch.Generator``; every sampler also takes them injected (``draws``), so a
-chain can be held step by step against the reference's draws.
+chain can be held step by step against the reference's draws. The samplers
+take their arguments in the reference's order, the generator in the place of
+its ``key``: ``hmc_sample`` and ``hmc_shortcut_sample`` require it, as the
+reference requires its key (``None`` draws from torch's default generator).
 """
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ def hmc_draws(num_samples: int, dim: int, generator: torch.Generator | None, lik
     return torch.randn((num_samples, dim), **new), torch.log(torch.rand((num_samples,), **new))
 
 
-def hmc_sample(potential_fn, u0: torch.Tensor, num_samples: int, stepsize: float = 1e-1,
-               leapfrog_steps: int = 20, generator: torch.Generator | None = None,
+def hmc_sample(potential_fn, u0: torch.Tensor, generator: torch.Generator | None,
+               num_samples: int, stepsize: float = 1e-1, leapfrog_steps: int = 20, *,
                draws=None):
     """Sample from exp(-potential) (hmc.py:31 ``sample``). Returns ``(samples
     (num_samples, dim), accept_rate)``; every step stores a sample, the accepted
@@ -72,10 +75,10 @@ def hmc_sample(potential_fn, u0: torch.Tensor, num_samples: int, stepsize: float
     return torch.stack(samples), rate
 
 
-def metropolis_hastings(logpost_fn, u0, num_samples: int = 10000, burnin: int = 1000,
-                        thin: int = 10, cov=None, tune: bool = True,
-                        tune_throughout: bool = False, tune_interval: int = 400,
-                        generator: torch.Generator | None = None, draws=None):
+def metropolis_hastings(logpost_fn, u0, generator: torch.Generator | None = None,
+                        num_samples: int = 10000, burnin: int = 1000, thin: int = 10,
+                        cov=None, tune: bool = True, tune_throughout: bool = False,
+                        tune_interval: int = 400, *, draws=None):
     """Random-walk Metropolis-Hastings with Gelman et al. tuning (samplers.py:17-71):
     proposals N(u, cov scale^2), scale from 2.4 / sqrt(D); uphill moves always,
     downhill ones with probability exp(f' - f); every ``tune_interval`` steps
@@ -132,9 +135,9 @@ def metropolis_hastings(logpost_fn, u0, num_samples: int = 10000, burnin: int = 
     return torch.as_tensor(kept, **new), total_acc, scale, cov
 
 
-def hmc_shortcut_sample(potential_fn, u0, num_samples: int, stepsize_range=(1e-6, 1e-1),
-                        groupsize: int = 5, Hstd_th=(1e-5, 3.0), leapfrog_steps: int = 20,
-                        generator: torch.Generator | None = None, draws=None):
+def hmc_shortcut_sample(potential_fn, u0, generator: torch.Generator | None,
+                        num_samples: int, stepsize_range=(1e-6, 1e-1), groupsize: int = 5,
+                        Hstd_th=(1e-5, 3.0), leapfrog_steps: int = 20, *, draws=None):
     """HMC with the shortcut trajectory test of ``HMC_shortcut`` (hmc.py:70-173).
 
     Per sample: a log-uniform stepsize from ``stepsize_range`` (hmc.py:87), then

@@ -64,8 +64,8 @@ def _init_idx(Y_train, Y_new, init="L2", valid=None, generator=None):
     return dist.argmin(axis=1)
 
 
-def infer_newX(model, Y_new, optimize=True, init="L2", maxiter=200, init_idx=None,
-               generator=None):
+def infer_newX(model, Y_new, optimize=True, init="L2", maxiter=200, generator=None, *,
+               init_idx=None):
     """Latent positions for new observations ``Y_new (N*, P)`` in the model's
     own Y space (a BayesianGPLVM keeps centred Y: centre the rows the same
     way). NaN entries are unobserved. ``init_idx`` overrides the starting rows

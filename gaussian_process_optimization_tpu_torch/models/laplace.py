@@ -136,8 +136,8 @@ class GPLaplace:
     def predict_latent(self, Xnew):
         return self._raw_predict(Xnew)
 
-    def predict_quantiles(self, Xnew, quantiles=(2.5, 97.5), rng=None, draws=None,
-                          posterior: LaplacePosterior | None = None):
+    def predict_quantiles(self, Xnew, quantiles=(2.5, 97.5), rng=None,
+                          posterior: LaplacePosterior | None = None, *, draws=None):
         """Predictive quantiles through the likelihood (GPy gp.py:384), in
         percent; a list of ``(M, 1)`` tensors."""
         mu, var = self._raw_predict(Xnew, posterior)

@@ -131,8 +131,8 @@ class GPModel_MCMC(BOModel):
         eps, momenta, log_u = self._draw(total, u0.shape[0], u0)
         # the x(1 + 0.01 eps) perturbation (gpmodel.py:251), in the packed coordinates
         u0 = u0 * (1.0 + 0.01 * eps)
-        chain, rate = hmc_sample(lambda u: fitter.objective(u[None], model)[0], u0, total,
-                                 stepsize=self.step_size,
+        chain, rate = hmc_sample(lambda u: fitter.objective(u[None], model)[0], u0, None,
+                                 total, stepsize=self.step_size,
                                  leapfrog_steps=self.leapfrog_steps, draws=(momenta, log_u))
         kept = chain[self.n_burnin::self.subsample_interval][:self.n_samples]
         self.accept_rate = float(rate)

@@ -39,7 +39,7 @@ class SVGP:
     Z: torch.Tensor = None            # (M, D)
     q_mu: torch.Tensor = None         # (M, P) whitened mean
     q_sqrt_flat: torch.Tensor = None  # (M(M+1)/2, P) packed whitened Cholesky
-    num_data: torch.Tensor = None
+    num_data: torch.Tensor | int = 0
     # a non-Gaussian likelihood (by quadrature, core/svgp.py); None is the
     # closed-form Gaussian one
     likelihood: object = None
@@ -154,17 +154,23 @@ class SVGP:
                                                        gh_points=gh_points)[:, None]
 
 
-def make_svgp_train_step(learning_rate=1e-2):
-    """A factory of Adam steps on -ELBO over the packed trainable leaves (the
-    kernel, the noise, Z, q_mu, q_sqrt). ``make(model)`` returns ``(packer, u,
-    optimizer, step)``; ``step(X_batch, Y_batch)`` takes one step on ``u`` in
-    place and returns -ELBO before it."""
+def make_svgp_train_step(optimizer=None, learning_rate=1e-2):
+    """A factory of optimizer steps on -ELBO over the packed trainable leaves
+    (the kernel, the noise, Z, q_mu, q_sqrt). ``optimizer`` takes the list of
+    parameters and returns a ``torch.optim.Optimizer`` (the reference's is an
+    optax transformation), e.g. ``lambda p: torch.optim.SGD(p, lr=0.1)``; by
+    default Adam at ``learning_rate`` with optax's betas and eps.
+    ``make(model)`` returns ``(packer, u, optimizer, step)``; ``step(X_batch,
+    Y_batch)`` takes one step on ``u`` in place and returns -ELBO before it."""
 
     def make(model):
         packer = make_packer(model, fix=("num_data",))
         u = packer.pack(model).detach().clone().requires_grad_(True)
-        # optax adam's defaults: b1 0.9, b2 0.999, eps 1e-8 after the square root
-        opt = torch.optim.Adam([u], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        if optimizer is None:
+            # optax adam's defaults: b1 0.9, b2 0.999, eps 1e-8 after the square root
+            opt = torch.optim.Adam([u], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        else:
+            opt = optimizer([u])
 
         def step(X_batch, Y_batch):
             opt.zero_grad(set_to_none=True)
@@ -191,7 +197,7 @@ def fit_svgp(model, X, Y, num_steps=500, batch_size=None, learning_rate=1e-2,
     batch_size = batch_size or min(n, 256)
     if indices is None and generator is None:
         generator = torch.Generator(device=X.device).manual_seed(0)
-    packer, u, _, step = make_svgp_train_step(learning_rate)(model)
+    packer, u, _, step = make_svgp_train_step(learning_rate=learning_rate)(model)
     losses = []
     for i in range(num_steps):
         if indices is not None:

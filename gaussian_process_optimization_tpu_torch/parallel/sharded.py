@@ -481,8 +481,8 @@ def make_sharded_sweep(score_fn, mesh):
 
 # ------------------------------------------------------------- multi-start fit
 def make_sharded_multistart_fit(template_model, mesh, restarts_per_device=1, maxiter=1000,
-                                tol=1e-5, fix=(), transform_overrides=None, priors=None,
-                                **kw):
+                                tol=1e-5, max_ls=8, fix=(), transform_overrides=None,
+                                priors=None, **kw):
     """Multi-restart hyperparameter fit with the restart axis sharded over the
     mesh: a ``models/fit.Fitter`` of axis size x ``restarts_per_device``
     restarts whose lane blocks each run on their shard's device, every lane of
@@ -494,8 +494,9 @@ def make_sharded_multistart_fit(template_model, mesh, restarts_per_device=1, max
     from ..models.fit import Fitter
 
     total = mesh.shape["data"] * max(1, int(restarts_per_device))
-    return Fitter(template_model, num_restarts=total, maxiter=maxiter, tol=tol, fix=fix,
-                  transform_overrides=transform_overrides, priors=priors, mesh=mesh, **kw)
+    return Fitter(template_model, num_restarts=total, maxiter=maxiter, tol=tol, max_ls=max_ls,
+                  fix=fix, transform_overrides=transform_overrides, priors=priors, mesh=mesh,
+                  **kw)
 
 
 # -------------------------------------------------- multi-start acq argmax

@@ -153,7 +153,8 @@ def test_optimize_host_matches_jax(name, acq, cost, models):
     jopt, topt = _optimizers(name, num_samples=200, num_anchor=3, maxiter=40)
     jx, jf = jopt.optimize_host(f=ja.acquisition_function,
                                 f_df=ja.acquisition_function_withGradients)
-    tx, tf = topt.optimize(ta)
+    tx, tf = topt.optimize(f=ta.acquisition_function,
+                           f_df=ta.acquisition_function_withGradients, acquisition=ta)
     assert tx.shape == (1, 2) and tf.shape == (1, 1)
     np.testing.assert_allclose(tx, jx, rtol=0, atol=1e-6)
     np.testing.assert_allclose(tf, jf, rtol=1e-6, atol=1e-9)
@@ -181,7 +182,7 @@ def test_optimize_chooses_its_path(name, cost, host, models, monkeypatch):
     calls = []
     monkeypatch.setattr(topt, "optimize_host", lambda **kw: calls.append("host") or (0, 0))
     monkeypatch.setattr(topt, "_optimize_device", lambda *a: calls.append("device") or (0, 0))
-    topt.optimize(ta)
+    topt.optimize(f=ta.acquisition_function, acquisition=ta)
     assert calls == ["host" if host else "device"]
 
 

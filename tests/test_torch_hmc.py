@@ -57,7 +57,7 @@ def test_hmc_chain_matches_jax_gaussian(stepsize, steps):
     js, jrate = jhmc.hmc_sample(_gaussian_potential(jnp), jnp.zeros(2), key, num_samples=20,
                                 stepsize=stepsize, leapfrog_steps=steps)
     ts, trate = hmc.hmc_sample(_gaussian_potential(torch), torch.zeros(2, dtype=torch.float64),
-                               20, stepsize=stepsize, leapfrog_steps=steps,
+                               None, 20, stepsize=stepsize, leapfrog_steps=steps,
                                draws=jax_hmc_draws(key, 20, 2))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-12, atol=1e-12)
     assert float(trate) == pytest.approx(float(jrate))
@@ -88,7 +88,7 @@ def test_hmc_chain_matches_jax_on_gp_posterior(rng):
     key = jax.random.PRNGKey(7)
     js, jrate = jhmc.hmc_sample(lambda u: jobj(u, jm), jnp.asarray(u0), key, num_samples=5,
                                 stepsize=0.1, leapfrog_steps=3)
-    ts, trate = hmc.hmc_sample(lambda u: tobj(u[None], tm)[0], torch.tensor(u0), 5,
+    ts, trate = hmc.hmc_sample(lambda u: tobj(u[None], tm)[0], torch.tensor(u0), None, 5,
                                stepsize=0.1, leapfrog_steps=3,
                                draws=jax_hmc_draws(key, 5, u0.shape[0]))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-8, atol=1e-10)
@@ -104,7 +104,7 @@ def test_hmc_rejects_a_nonfinite_proposal():
 
     momenta = torch.full((4, 2), 3.0, dtype=torch.float64)
     log_u = torch.full((4,), -1e-9, dtype=torch.float64)
-    s, rate = hmc.hmc_sample(potential, torch.zeros(2, dtype=torch.float64), 4, stepsize=0.5,
+    s, rate = hmc.hmc_sample(potential, torch.zeros(2, dtype=torch.float64), None, 4, stepsize=0.5,
                              leapfrog_steps=2, draws=(momenta, log_u))
     assert float(rate) == 0.0 and torch.equal(s, torch.zeros(4, 2, dtype=torch.float64))
 
@@ -185,7 +185,7 @@ def test_hmc_shortcut_chain_matches_jax(target, u0, stepsize_range, groupsize, s
     kw = dict(stepsize_range=stepsize_range, groupsize=groupsize, leapfrog_steps=steps)
     js, jrate = jhmc.hmc_shortcut_sample(potential(jnp), jnp.full(2, u0), key, 25, **kw)
     ts, trate = hmc.hmc_shortcut_sample(potential(torch),
-                                        torch.full((2,), u0, dtype=torch.float64), 25,
+                                        torch.full((2,), u0, dtype=torch.float64), None, 25,
                                         draws=jax_shortcut_draws(key, 25, 2), **kw)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-8, atol=1e-10)
     assert trate == pytest.approx(float(jrate), rel=1e-12)
@@ -196,7 +196,7 @@ def test_hmc_gaussian_moments():
     own generator."""
     gen = torch.Generator().manual_seed(0)
     s, rate = hmc.hmc_sample(_gaussian_potential(torch), torch.zeros(2, dtype=torch.float64),
-                             1500, stepsize=0.3, leapfrog_steps=10, generator=gen)
+                             gen, 1500, stepsize=0.3, leapfrog_steps=10)
     assert float(rate) > 0.6
     s = s[300:].numpy()
     np.testing.assert_allclose(s.mean(0), MU, atol=0.15)
@@ -228,9 +228,9 @@ def test_hmc_shortcut_gaussian_moments():
     sampler's moments agree with the analytic ones."""
     gen = torch.Generator().manual_seed(2)
     s, rate = hmc.hmc_shortcut_sample(_gaussian_potential(torch),
-                                      torch.zeros(2, dtype=torch.float64), 800,
+                                      torch.zeros(2, dtype=torch.float64), gen, 800,
                                       stepsize_range=(1e-3, 0.5), groupsize=5,
-                                      leapfrog_steps=10, generator=gen)
+                                      leapfrog_steps=10)
     assert rate > 0.5
     s = s[200:].numpy()
     np.testing.assert_allclose(s.mean(0), MU, atol=0.25)
@@ -246,7 +246,7 @@ def test_hmc_shortcut_unstable_stepsize_stays_finite():
     def potential(u):
         return 0.5 * torch.sum(torch.square(u)) * 50.0
 
-    s, _ = hmc.hmc_shortcut_sample(potential, torch.ones(2, dtype=torch.float64), 50,
+    s, _ = hmc.hmc_shortcut_sample(potential, torch.ones(2, dtype=torch.float64), gen, 50,
                                    stepsize_range=(5.0, 10.0), groupsize=3,
-                                   leapfrog_steps=12, generator=gen)
+                                   leapfrog_steps=12)
     assert np.all(np.isfinite(s.numpy())) and np.max(np.abs(s.numpy())) < 50.0

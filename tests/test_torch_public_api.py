@@ -157,52 +157,44 @@ def test_exclusions_are_still_gaps():
         with pytest.raises(ImportError):
             importlib.import_module(f"{PORT}.{short}")
     for path in NAMES_NOT_PORTED:
-        parts = path.split(".")
-        for cut in range(len(parts) - 1, 0, -1):
-            try:
-                ref = importlib.import_module(f"{REF}.{'.'.join(parts[:cut])}")
-                twin = importlib.import_module(f"{PORT}.{'.'.join(parts[:cut])}")
-                break
-            except ImportError:
-                continue
-        for attr in parts[cut:-1]:
-            ref, twin = getattr(ref, attr), getattr(twin, attr)
-        assert hasattr(ref, parts[-1]) and not hasattr(twin, parts[-1]), path
+        ref, twin = _resolve(path, 1)
+        name = path.split(".")[-1]
+        assert hasattr(ref, name) and not hasattr(twin, name), path
 
 
-# parameter names of the reference's public functions and methods (module.
-# qualname.parameter) that the twin does not take, with the reason. The
-# reference's ``key`` (a JAX PRNG key) is the twin's ``generator`` or ``rng``
-# wherever the twin takes one, and a twin's **kwargs takes any name.
+# parameters of the reference's public functions and methods (module.qualname.
+# parameter) that the twin takes under another name at the same place: the
+# twin's name and the reason. The reference's ``key`` (a JAX PRNG key) is the
+# twin's ``generator`` or ``rng`` wherever the twin takes one.
 KEY_NAMES = ("generator", "rng")
 PARAMETERS_NOT_PORTED = {
-    "models.fit.Fitter.__init__.jit": "the port runs eagerly: there is no program to compile",
-    "ops.lbfgs.minimize.carry_vjp": "named carry_graph: a trial keeps its autograd graph, "
-                                    "not a vjp closure",
-    "utils.packing.Packer.pack.params": "named model, positional: the same model",
-    "models.bgplvm_svi.BGPLVM_SVI.data_term.idx_Y": "named Y, positional: the batch's rows",
-    "models.bgplvm_svi.BGPLVM_SVI.data_term.idx_mu": "named mu, positional",
-    "models.bgplvm_svi.BGPLVM_SVI.data_term.idx_S": "named S, positional",
+    "ops.lbfgs.minimize.carry_vjp": ("carry_graph", "a trial keeps its autograd graph, "
+                                                    "not a vjp closure"),
+    "utils.packing.Packer.pack.params": ("model", "the same model"),
+    "models.bgplvm_svi.BGPLVM_SVI.data_term.idx_Y": ("Y", "the batch's rows"),
+    "models.bgplvm_svi.BGPLVM_SVI.data_term.idx_mu": ("mu", "the batch's means"),
+    "models.bgplvm_svi.BGPLVM_SVI.data_term.idx_S": ("S", "the batch's variances"),
     "bo.entropy_search.AcquisitionEntropySearchEPMGP.pure_raw_acq.gp_unused":
-        "named gp, positional, as in the base class",
+        ("gp", "as in the base class"),
     "bo.entropy_search.AcquisitionEntropySearchEPMGP.pure_raw_acq.posterior_unused":
-        "named posterior, positional",
+        ("posterior", "as in the base class"),
     "bo.entropy_search.AcquisitionEntropySearchEPMGP.pure_raw_acq.fmin_unused":
-        "named fmin, positional",
-    # the next slice (ROADMAP A23)
-    "bo.bo_loop.BO.__init__.normalization_type": "not ported yet (ROADMAP A23)",
-    "bo.methods.ArgumentsManager.evaluator_creator.model_type": "not ported yet (ROADMAP A23)",
-    "bo.optimizer.AcquisitionOptimizer.__init__.kwargs": "not ported yet (ROADMAP A23)",
-    "bo.optimizer.AcquisitionOptimizer.optimize.f": "the port takes the acquisition as acq "
-                                                    "(ROADMAP A23)",
-    "bo.optimizer.AcquisitionOptimizer.optimize.df": "ROADMAP A23",
-    "bo.optimizer.AcquisitionOptimizer.optimize.f_df": "ROADMAP A23",
-    "bo.optimizer.AcquisitionOptimizer.optimize.acquisition": "named acq (ROADMAP A23)",
-    "bo.optimizer.AcquisitionOptimizer.optimize_host.df": "not ported yet (ROADMAP A23)",
-    "bo.mcmc_sampler.ensemble_sample.init": "not ported yet (ROADMAP A23)",
-    "models.gplvm.fit_gplvm.key": "unused in the reference's body (ROADMAP A23)",
-    "models.svgp.make_svgp_train_step.optimizer": "an optax optimizer (ROADMAP A23)",
+        ("fmin", "as in the base class"),
 }
+# functions and methods (module.qualname) whose positional parameters do not
+# sit where the reference's do, with the reason
+ORDER_NOT_PORTED = {
+    "config.Config.__init__": "the dataclass's fields are the port's: the Pallas switches "
+                              "are renamed or have no twin (NAMES_NOT_PORTED)",
+}
+# parameters (module.qualname.parameter) whose default differs, with the reason
+DEFAULTS_NOT_PORTED = {
+    "config.Config.__init__.grad_matmul_precision":
+        "the port keeps every reduced-precision knob opt-in: 'highest', where the "
+        "reference defaults to bf16x3 'high'",
+}
+_VAR = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+_POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
 
 def _callables(cls_or_module, twin):
@@ -226,25 +218,49 @@ def _callables(cls_or_module, twin):
     return out
 
 
-@pytest.mark.parametrize("name", _ref_modules())
-def test_parameter_names_match(name):
-    """Every parameter name of a public function or method of the reference
-    module is a parameter of the twin's (a class attribute the port does not
-    have, listed in NAMES_NOT_PORTED, excepted for a dataclass's fields)."""
+def _twin_name(path, name, theirs):
+    """The twin's name for the reference's parameter ``name``, or None."""
+    if name in theirs:
+        return name
+    if name == "key":
+        return next((k for k in KEY_NAMES if k in theirs), None)
+    renamed = PARAMETERS_NOT_PORTED.get(f"{path}.{name}", (None,))[0]
+    return renamed if renamed in theirs else None
+
+
+def _pairs(name):
     ref, twin = importlib.import_module(name), _twin(name)
     short = name[len(REF) + 1:]
-    missing = []
     for qual, f, tf in _callables(ref, twin):
-        theirs = inspect.signature(tf).parameters
-        if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in theirs.values()):
-            continue
+        yield (f"{short}.{qual}", qual, inspect.signature(f).parameters,
+               inspect.signature(tf).parameters)
+
+
+@pytest.mark.parametrize("name", _ref_modules())
+def test_parameter_names_match(name):
+    """Every parameter of a public function or method of the reference module
+    is a parameter of the twin's, under its name, as ``generator`` / ``rng``
+    for ``key``, or as listed in PARAMETERS_NOT_PORTED (a class attribute the
+    port does not have, listed in NAMES_NOT_PORTED, excepted for a dataclass's
+    fields). A twin's ``**kwargs`` takes a missing name only where the
+    reference's function takes ``**kwargs`` too; the reference's ``*args`` and
+    ``**kwargs`` need the twin's."""
+    short = name[len(REF) + 1:]
+    missing = []
+    for path, qual, ours, theirs in _pairs(name):
+        kinds = {p.kind for p in theirs.values()}
+        ref_kinds = {p.kind for p in ours.values()}
         cls = qual.split(".")[0]
-        for p in inspect.signature(f).parameters:
-            if p in theirs or p in ("self", "cls"):
+        for p, param in ours.items():
+            if p in ("self", "cls"):
                 continue
-            if p == "key" and any(k in theirs for k in KEY_NAMES):
+            if param.kind in _VAR:
+                if param.kind not in kinds:
+                    missing.append(f"{qual}({p})")
                 continue
-            if f"{short}.{qual}.{p}" in PARAMETERS_NOT_PORTED:
+            if _twin_name(path, p, theirs) is not None:
+                continue
+            if inspect.Parameter.VAR_KEYWORD in kinds & ref_kinds:
                 continue
             if qual.endswith("__init__") and f"{short}.{cls}.{p}" in NAMES_NOT_PORTED:
                 continue
@@ -252,21 +268,102 @@ def test_parameter_names_match(name):
     assert not missing, f"{short or REF}: {missing}"
 
 
-def test_parameter_exclusions_are_still_gaps():
-    """Each listed parameter is the reference's and not the twin's."""
-    for path in PARAMETERS_NOT_PORTED:
-        parts = path.split(".")
-        for cut in range(len(parts) - 1, 0, -1):
-            try:
-                ref = importlib.import_module(f"{REF}.{'.'.join(parts[:cut])}")
-                twin = importlib.import_module(f"{PORT}.{'.'.join(parts[:cut])}")
+@pytest.mark.parametrize("name", _ref_modules())
+def test_parameter_order_matches(name):
+    """Every parameter the reference takes positionally sits at the same index
+    among the twin's positional parameters (``key`` where the twin has
+    ``generator`` or ``rng``), so that a positional call written for the
+    reference binds the same in the port: the port's own parameters come after
+    the reference's."""
+    short = name[len(REF) + 1:]
+    moved = []
+    for path, qual, ours, theirs in _pairs(name):
+        if path in ORDER_NOT_PORTED:
+            continue
+        mine = [n for n, p in theirs.items() if p.kind in _POSITIONAL]
+        for i, p in enumerate(n for n, q in ours.items() if q.kind in _POSITIONAL):
+            want = _twin_name(path, p, theirs)
+            if i >= len(mine) or mine[i] != want:
+                moved.append(f"{qual}: {p} at {i}, the port has "
+                             f"{mine[i] if i < len(mine) else None}")
                 break
-            except ImportError:
+    assert not moved, f"{short or REF}: {moved}"
+
+
+def _same(a, b):
+    """Equal defaults of one type (0 and 0.0 are not the same default)."""
+    try:
+        return type(a) is type(b) and bool(a == b)
+    except (TypeError, ValueError):
+        return a is b
+
+
+@pytest.mark.parametrize("name", _ref_modules())
+def test_parameter_defaults_match(name):
+    """Where the reference and the twin both give a parameter a default, the
+    two are equal."""
+    short = name[len(REF) + 1:]
+    differ = []
+    empty = inspect.Parameter.empty
+    for path, qual, ours, theirs in _pairs(name):
+        for p, param in ours.items():
+            tn = _twin_name(path, p, theirs)
+            if tn is None or param.default is empty or theirs[tn].default is empty:
                 continue
-        for attr in parts[cut:-1]:
-            ref, twin = getattr(ref, attr), getattr(twin, attr)
-        assert parts[-1] in inspect.signature(ref).parameters, path
-        assert parts[-1] not in inspect.signature(twin).parameters, path
+            if f"{path}.{p}" not in DEFAULTS_NOT_PORTED and not _same(
+                    param.default, theirs[tn].default):
+                differ.append(f"{qual}({p}): {param.default!r} vs {theirs[tn].default!r}")
+    assert not differ, f"{short or REF}: {differ}"
+
+
+def _resolve(path, depth):
+    """The reference's and the twin's objects at ``path`` less its last
+    ``depth`` parts: the longest module prefix both packages import, then
+    attributes."""
+    parts = path.split(".")
+    for cut in range(len(parts) - depth, 0, -1):
+        try:
+            ref = importlib.import_module(f"{REF}.{'.'.join(parts[:cut])}")
+            twin = importlib.import_module(f"{PORT}.{'.'.join(parts[:cut])}")
+            break
+        except ImportError:
+            continue
+    for attr in parts[cut:len(parts) - depth]:
+        ref, twin = getattr(ref, attr), getattr(twin, attr)
+    return ref, twin
+
+
+def test_parameter_exclusions_are_still_gaps():
+    """Each listed parameter is the reference's and not the twin's, which
+    takes the listed name in its place."""
+    for path, (renamed, _) in PARAMETERS_NOT_PORTED.items():
+        ref, twin = _resolve(path, 1)
+        name = path.split(".")[-1]
+        ours, theirs = inspect.signature(ref).parameters, inspect.signature(twin).parameters
+        assert name in ours and name not in theirs, path
+        assert renamed in theirs and renamed not in ours, path
+        assert list(ours).index(name) == list(theirs).index(renamed), path
+
+
+def test_order_exclusions_are_still_gaps():
+    """Each function listed in ORDER_NOT_PORTED still takes its positional
+    parameters in another order than the reference's."""
+    for path in ORDER_NOT_PORTED:
+        ref, twin = _resolve(path, 0)
+        ours = [n for n, p in inspect.signature(ref).parameters.items() if p.kind in _POSITIONAL]
+        theirs = [n for n, p in inspect.signature(twin).parameters.items()
+                  if p.kind in _POSITIONAL]
+        assert ours[:len(theirs)] != theirs[:len(ours)], path
+
+
+def test_default_exclusions_are_still_gaps():
+    """Each default listed in DEFAULTS_NOT_PORTED still differs."""
+    for path in DEFAULTS_NOT_PORTED:
+        ref, twin = _resolve(path, 1)
+        name = path.split(".")[-1]
+        a = inspect.signature(ref).parameters[name].default
+        b = inspect.signature(twin).parameters[name].default
+        assert inspect.Parameter.empty not in (a, b) and not _same(a, b), path
 
 
 # ------------------------------------------------------------------ DesignSpace

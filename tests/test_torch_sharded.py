@@ -216,7 +216,7 @@ def test_sharded_svgp_step_matches_jax_step_by_step(data, meshes):
     np.testing.assert_allclose(_np(tu), np.asarray(ju), rtol=RTOL)
     with torch.no_grad():
         elbo = float(tm.elbo(_t(X), _t(Y)))
-    _, uu, _, ustep = make_svgp_train_step(1e-2)(tm)
+    _, uu, _, ustep = make_svgp_train_step(learning_rate=1e-2)(tm)
     for i in range(3):
         ju, jst, jv = jstep(ju, jst, jm, jnp.asarray(X), jnp.asarray(Y))
         tu, opt, tv = tstep(tu, opt, tm, _t(X), _t(Y))
