@@ -125,7 +125,7 @@ def main():
 
     from gaussian_process_optimization_tpu_torch import workload
     from gaussian_process_optimization_tpu_torch.config import config
-    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.utils.profiling import counters
 
     print(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -142,14 +142,14 @@ def main():
     def warm(i, chol_blocks):
         config.cuda_chol_blocks = chol_blocks
         bo.Y = Y + 0.01 * np.random.default_rng(10 + i).standard_normal(Y.shape)
-        cl.cholesky_blocks.launches = 0
+        counters["b4.launches"] = 0
         t0 = time.perf_counter()
         it = workload.thesis_iteration(bo)
         total = time.perf_counter() - t0
         print(f"cuda_chol_blocks={chol_blocks!s:5}: total {total:.3f} s = fit {it.fit_s:.3f} "
               f"+ estimate_L {it.estimate_L_s:.3f} + argmaxes "
               f"{' + '.join(f'{a:.3f}' for a in it.argmax_s)}; ladder {bo.model.ladder[-1]}, "
-              f"B4 launches {cl.cholesky_blocks.launches}")
+              f"B4 launches {counters['b4.launches']}")
 
     for i, on in enumerate((True, False, False, True)):
         warm(i, on)

@@ -895,20 +895,18 @@ def phase_main(dev):
     from gaussian_process_optimization_tpu_torch.bo.acquisitions import neg_ei
     from gaussian_process_optimization_tpu_torch.models.fit import make_objective
     from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
-    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
-    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.utils import profiling
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
-    counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
-                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    counters = LAUNCHES
     *_, fit_cold, acq_cold = _run_main_path(dev, 1)
     print(f"# main path, first run: fit {fit_cold:.3f} s, acquisition {acq_cold:.3f} s")
 
-    for fn in counters.values():
-        fn.launches = 0
+    for name in counters.values():
+        profiling.counters[name] = 0
     torch.cuda.reset_peak_memory_stats()
     model, fitted, res, acq, fit_s, acq_s = _run_main_path(dev, 0)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: profiling.counters[name] for k, name in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     post = acq.posterior
     print(f"# main path (N=4096, D=6, 5x30 fit, 1000 sweep, 5x50 anchors, f32): "
@@ -993,11 +991,13 @@ class _TraceBackend:
 def _launched(counters, fn):
     """``(fn(), seconds, launches)``: the host clock around ``fn`` ending in a
     synchronize, and each kernel's launches during it."""
-    for c in counters.values():
-        c.launches = 0
+    from gaussian_process_optimization_tpu_torch.utils import profiling
+
+    for name in counters.values():
+        profiling.counters[name] = 0
     t0 = _sync()
     out = fn()
-    return out, _sync() - t0, {k: c.launches for k, c in counters.items()}
+    return out, _sync() - t0, {k: profiling.counters[name] for k, name in counters.items()}
 
 
 def _start_gradient(model, precision):
@@ -1070,14 +1070,11 @@ def phase_fit_options(dev, default_fitted, default_res):
     from gaussian_process_optimization_tpu_torch.config import config
     from gaussian_process_optimization_tpu_torch.models.fit import Fitter, make_objective
     from gaussian_process_optimization_tpu_torch.models.parameters import make_packer
-    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
-    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
     from gaussian_process_optimization_tpu_torch.utils import plotting_library as tpl
     from gaussian_process_optimization_tpu_torch.utils.normalizer import normalize_stats
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
-    counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
-                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    counters = LAUNCHES
     X, Y = workload.bench_data()
     model = workload.make_model(X, Y, dtype=torch.float32, device=dev)
     kw = dict(num_restarts=workload.FIT_RESTARTS, maxiter=workload.FIT_STEPS, tol=0.0)
@@ -1408,12 +1405,11 @@ def phase_thesis(dev, nb: int = 256):
 
     from gaussian_process_optimization_tpu_torch import workload
     from gaussian_process_optimization_tpu_torch.config import config
-    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
     from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.utils import profiling
     from gaussian_process_optimization_tpu_torch.utils.tree import tree_map
 
-    counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
-                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    counters = LAUNCHES
     X, Y = workload.thesis_data()
     old = config.cuda_chol_blocks
     config.cuda_chol_blocks = True
@@ -1422,13 +1418,13 @@ def phase_thesis(dev, nb: int = 256):
         for call in ("cold", "warm"):
             if call == "warm":  # fresh Y, as bench.py:208 does
                 bo.Y = Y + 0.01 * np.random.default_rng(10).standard_normal(Y.shape)
-            for fn in counters.values():
-                fn.launches = 0
+            for name in counters.values():
+                profiling.counters[name] = 0
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             it = workload.thesis_iteration(bo)
             total = time.perf_counter() - t0
-            launches = {k: fn.launches for k, fn in counters.items()}
+            launches = {k: profiling.counters[name] for k, name in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 2**30
             post = bo.model.posterior
             print(f"# thesis {call} (N=4096, Gower, exact_feval, 5x30 fit, LP batch of 5, "
@@ -1637,13 +1633,11 @@ def phase_composite(dev):
 
     from gaussian_process_optimization_tpu_torch import workload
     from gaussian_process_optimization_tpu_torch.models import fit as fit_mod
-    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
-    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
+    from gaussian_process_optimization_tpu_torch.utils import profiling
     from gaussian_process_optimization_tpu_torch.utils.normalizer import normalize_stats
     from gaussian_process_optimization_tpu_torch.utils.tree import named_leaves, tree_map
 
-    counters = {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
-                "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+    counters = LAUNCHES
     X, Y = workload.bench_data()
     bo = workload.composite_bo(X, Y)
     gm = bo.model
@@ -1667,15 +1661,15 @@ def phase_composite(dev):
     real_solve = fit_mod.Fitter.solve
 
     def solve(self, model, starts):
-        before = ck.stationary_k_build.launches
+        before = profiling.counters["b1.launches"]
         out = real_solve(self, model, starts)
-        fits.append((self.evaluations, ck.stationary_k_build.launches - before,
+        fits.append((self.evaluations, profiling.counters["b1.launches"] - before,
                      out[1].num_ls.tolist()))
         return out
 
     fit_mod.Fitter.solve = solve
-    for fn in counters.values():
-        fn.launches = 0
+    for name in counters.values():
+        profiling.counters[name] = 0
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
@@ -1684,7 +1678,7 @@ def phase_composite(dev):
         total = time.perf_counter() - t0
     finally:
         fit_mod.Fitter.solve = real_solve
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: profiling.counters[name] for k, name in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     model, post = gm.model, gm.posterior
     print(f"# composite (N=4096 -> {len(bo.X)}, D=6, Matern52 ARD + RBF on input 0, Gamma "
@@ -1737,11 +1731,11 @@ def phase_composite(dev):
                  cost_withGradients=_bench_cost)))
     for label, kw in calls:
         other = workload.composite_bo(bo.X, bo.Y, **fitted, **kw)
-        before = {k: fn.launches for k, fn in counters.items()}
+        before = {k: profiling.counters[name] for k, name in counters.items()}
         t0 = time.perf_counter()
         batch = other.suggest_next_locations()
         seconds = time.perf_counter() - t0
-        delta = {k: fn.launches - before[k] for k, fn in counters.items()}
+        delta = {k: profiling.counters[name] - before[k] for k, name in counters.items()}
         print(f"# composite, {label}: suggest_next_locations {seconds:.3f} s (posterior "
               f"{other.fit_seconds:.3f} s), launches {delta}, batch {batch.tolist()}")
         rows = kw.get("batch_size", 1)
@@ -1753,26 +1747,24 @@ def phase_composite(dev):
     return launches
 
 
-def _counts():
-    from gaussian_process_optimization_tpu_torch.ops import cuda_kernels as ck
-    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
-
-    return {"B1": ck.stationary_k_build, "B2": ck.stationary_k_backward,
-            "B3": cl.tri_inv_blocks, "B4": cl.cholesky_blocks}
+# each kernel's launch counter in the program's registry (utils/profiling.py)
+LAUNCHES = {"B1": "b1.launches", "B2": "b2.launches", "B3": "b3.launches",
+            "B4": "b4.launches"}
+# of B2's: the row passes that wrote dX, and the column (dZ) passes
+LAUNCHES_B2 = {"B2 dX": "b2.launches_dx", "B2 dZ": "b2.launches_dz"}
 
 
 def _zero_counts():
-    for fn in _counts().values():
-        fn.launches = 0
-    b2 = _counts()["B2"]
-    b2.launches_dx = b2.launches_dz = 0
+    from gaussian_process_optimization_tpu_torch.utils import profiling
+
+    for name in (*LAUNCHES.values(), *LAUNCHES_B2.values()):
+        profiling.counters[name] = 0
 
 
 def _read_counts():
-    out = {k: fn.launches for k, fn in _counts().items()}
-    b2 = _counts()["B2"]
-    out["B2 dX"], out["B2 dZ"] = b2.launches_dx, b2.launches_dz
-    return out
+    from gaussian_process_optimization_tpu_torch.utils import profiling
+
+    return {k: profiling.counters[name] for k, name in {**LAUNCHES, **LAUNCHES_B2}.items()}
 
 
 def _in_box(name, x, lo=-2.0, hi=2.0):
@@ -3565,8 +3557,8 @@ def _leg_distributed_cholesky(dev, mesh, acc, failures):
     from gaussian_process_optimization_tpu_torch import workload
     from gaussian_process_optimization_tpu_torch.config import config
     from gaussian_process_optimization_tpu_torch.kernels.stationary import Matern52
-    from gaussian_process_optimization_tpu_torch.ops import cuda_linalg as cl
     from gaussian_process_optimization_tpu_torch.parallel import sharded
+    from gaussian_process_optimization_tpu_torch.utils import profiling
     from gaussian_process_optimization_tpu_torch.utils.profiling import PhaseTimer
 
     pt = PhaseTimer()
@@ -3591,13 +3583,13 @@ def _leg_distributed_cholesky(dev, mesh, acc, failures):
         for on in (False, True):
             config.cuda_chol_blocks = on
             tag = f"cuda_chol_blocks {'on' if on else 'off'}"
-            before = cl.cholesky_blocks.launches
+            before = profiling.counters["b4.launches"]
             with torch.no_grad():
                 chol(A)  # builds
                 with pt(f"distributed, {tag}"), _Counted(acc):
                     L = chol(A)
                     pt.sync(L)
-            b4 = (cl.cholesky_blocks.launches - before) // 2
+            b4 = (profiling.counters["b4.launches"] - before) // 2
             e64 = float((L.double() - L64).abs().max()) / scale
             eu = float((L - Lu).abs().max()) / scale
             print(f"# sharded, distributed Cholesky N={n} {tag}: B4 launches a call {b4}; "

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import config
+from ..utils.profiling import host
 
 _SQRT_2PI = math.sqrt(2.0 * math.pi)
 _SQRT_2 = math.sqrt(2.0)
@@ -130,7 +131,7 @@ class AcquisitionBase:
         gp, post, fmin, state = self.device_args()
         with torch.no_grad():
             f = self.pure_raw_acq(gp, post, fmin, state, self._tensor(x, gp))
-        return f.cpu().numpy().astype(float)
+        return host(f).numpy().astype(float)
 
     def _compute_acq_withGradients(self, x):
         if not self.supports_device:
@@ -150,7 +151,7 @@ class AcquisitionBase:
             X = self._tensor(x, gp).requires_grad_(True)
             f = self.pure_raw_acq(gp, post, fmin, state, X)
             (df,) = torch.autograd.grad(f.sum(), X)
-        return f.detach().cpu().numpy().astype(float), df.cpu().numpy().astype(float)
+        return host(f.detach()).numpy().astype(float), host(df).numpy().astype(float)
 
     def acquisition_function(self, x):
         """-(raw * indicator) / cost (base.py:33)."""

@@ -7,7 +7,10 @@ the next batch, evaluate the objective. A fit whose posterior factorization
 fails even after one retry ends the run (bo.py:134-137). The loop is host
 Python; the surrogate and the acquisition run on the surrogate's device.
 ``fit_seconds`` is the host-clock time of the last refit; ``seconds`` sums the
-run's fit, acquisition and objective phases. ``plot_acquisition`` and
+run's fit, acquisition and objective phases. Under a profiler, ``bo.fit``
+spans the interval ``fit_seconds`` times and ``bo.batch`` the next batch,
+inside ``bo.suggest`` or ``bo.iteration`` (``utils.profiling``).
+``plot_acquisition`` and
 ``plot_convergence`` draw the reference's two diagnostics (``utils/plotting``).
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ import time
 import numpy as np
 
 from ..utils.normalizer import normalize_stats
+from ..utils.profiling import host, span, spanned
 from .cost import CostModel
 from .duplicate_manager import DuplicateManager
 from .optimizer import ContextManager
@@ -47,6 +51,7 @@ class BO:
         self.seconds = {"fit": 0.0, "acquisition": 0.0, "objective": 0.0}
         self._fit_failed = False
 
+    @spanned("bo.suggest")
     def suggest_next_locations(self, context=None, pending_X=None, ignored_X=None):
         """Ask (bo.py:55-71): fit on the current (X, Y) and return the next
         batch in objective space."""
@@ -77,28 +82,29 @@ class BO:
         self._fit_failed = False
         self.seconds = {"fit": 0.0, "acquisition": 0.0, "objective": 0.0}
         while self.max_time > self.cum_time:
-            zero_time = time.time()
-            self._update_model(self.normalization_type)
-            self.seconds["fit"] += time.time() - zero_time
-            if self._fit_failed:
-                break
-            if save_models_parameters:
-                self._save_model_parameter_values()
-            if (self.num_acquisitions >= self.max_iter
-                    or (len(self.X) > 1 and self._distance_last_evaluations() <= self.eps)):
-                break
-            t0 = time.time()
-            self.suggested_sample = self._compute_next_evaluations()
-            self.seconds["acquisition"] += time.time() - t0
-            self.X = np.vstack((self.X, self.suggested_sample))
-            t0 = time.time()
-            self.evaluate_objective()
-            self.seconds["objective"] += time.time() - t0
-            self.cum_time += time.time() - zero_time
-            self.num_acquisitions += 1
-            if verbosity:
-                print(f"num acquisition: {self.num_acquisitions}, "
-                      f"time elapsed: {self.cum_time:.2f}s")
+            with span("bo.iteration"):
+                zero_time = time.time()
+                self._update_model(self.normalization_type)
+                self.seconds["fit"] += time.time() - zero_time
+                if self._fit_failed:
+                    break
+                if save_models_parameters:
+                    self._save_model_parameter_values()
+                if (self.num_acquisitions >= self.max_iter
+                        or (len(self.X) > 1 and self._distance_last_evaluations() <= self.eps)):
+                    break
+                t0 = time.time()
+                self.suggested_sample = self._compute_next_evaluations()
+                self.seconds["acquisition"] += time.time() - t0
+                self.X = np.vstack((self.X, self.suggested_sample))
+                t0 = time.time()
+                self.evaluate_objective()
+                self.seconds["objective"] += time.time() - t0
+                self.cum_time += time.time() - zero_time
+                self.num_acquisitions += 1
+                if verbosity:
+                    print(f"num acquisition: {self.num_acquisitions}, "
+                          f"time elapsed: {self.cum_time:.2f}s")
         self._compute_results()
         if report_file is not None:
             self.save_report(report_file)
@@ -124,25 +130,27 @@ class BO:
         reference (bo_loop.py:161-167)."""
         if self.num_acquisitions % self.model_update_interval != 0:
             return
-        t0 = time.perf_counter()
-        X_inmodel = self.space.unzip_inputs(self.X)
-        Y_inmodel = np.asarray(normalize_stats(self.Y)) if self.normalize_Y else self.Y
-        self.model.updateModel(X_inmodel, Y_inmodel, None, None)
-        # surrogates without one exact posterior (the MCMC samples, the forest)
-        # are not checked, as in the reference
-        if not self._posterior_ok():
+        with span("bo.fit"):
+            t0 = time.perf_counter()
+            X_inmodel = self.space.unzip_inputs(self.X)
+            Y_inmodel = np.asarray(normalize_stats(self.Y)) if self.normalize_Y else self.Y
             self.model.updateModel(X_inmodel, Y_inmodel, None, None)
+            # surrogates without one exact posterior (the MCMC samples, the
+            # forest) are not checked, as in the reference
             if not self._posterior_ok():
-                print("Warning: surrogate fit failed (non-PD covariance); stopping.")
-                self._fit_failed = True
-        self.X_inmodel = X_inmodel
-        self.Y_inmodel = Y_inmodel
-        self.fit_seconds = time.perf_counter() - t0
+                self.model.updateModel(X_inmodel, Y_inmodel, None, None)
+                if not self._posterior_ok():
+                    print("Warning: surrogate fit failed (non-PD covariance); stopping.")
+                    self._fit_failed = True
+            self.X_inmodel = X_inmodel
+            self.Y_inmodel = Y_inmodel
+            self.fit_seconds = time.perf_counter() - t0
 
     def _posterior_ok(self) -> bool:
         post = getattr(self.model, "posterior", None)
-        return post is None or post.ok is None or bool(post.ok)
+        return post is None or post.ok is None or bool(host(post.ok))
 
+    @spanned("bo.batch")
     def _compute_next_evaluations(self, pending_zipped_X=None, ignored_zipped_X=None):
         """(bo.py:216-235): context, de-duplication, the evaluator's batch, zipped."""
         context_manager = ContextManager(self.space, self.context)

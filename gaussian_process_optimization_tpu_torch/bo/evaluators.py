@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops import lbfgs
+from ..utils.profiling import host, span
 from .acquisitions import AcquisitionLP
 from .anchor_points import RandomAnchorPointsGenerator, ThompsonSamplingAnchorPointsGenerator
 
@@ -186,18 +187,18 @@ def estimate_L(model, bounds, seed=0):
     hi = np.asarray([b[1] for b in bounds], dtype=float)
     rng = np.random.default_rng(seed)
     samples = rng.uniform(lo, hi, size=(500, len(bounds)))
-    X_train = gp.X[gp.mask > 0].cpu().numpy()
+    X_train = host(gp.X[gp.mask > 0]).numpy()
     samples = np.vstack([samples, X_train])
 
     def t(a):
         return torch.as_tensor(a, dtype=gp.X.dtype, device=gp.X.device)
 
     with torch.no_grad():
-        vals = _neg_grad_norm(gp, post, t(samples)).cpu().numpy()
+        vals = host(_neg_grad_norm(gp, post, t(samples))).numpy()
     x0 = samples[int(np.argmin(vals))]
     res = lbfgs.minimize(lambda X: _neg_grad_norm(gp, post, X), t(x0), lower=t(lo),
                          upper=t(hi), maxiter=200, carry_graph=False)
-    L = float(-res.f)
+    L = float(host(-res.f))
     if L < 1e-7:
         L = 10.0  # to avoid problems in cases in which the model is flat
     return L
@@ -221,17 +222,20 @@ class LocalPenalization(EvaluatorBase):
         seconds = {"estimate_L": 0.0, "argmax": []}
         acq.update_batches(None, None, None)
         t0 = time.perf_counter()
-        X_batch, _ = acq.optimize(duplicate_manager=duplicate_manager)
+        with span("lp.argmax"):
+            X_batch, _ = acq.optimize(duplicate_manager=duplicate_manager)
         seconds["argmax"].append(time.perf_counter() - t0)
         if self.batch_size > 1:
             t0 = time.perf_counter()
-            L = estimate_L(acq.model, acq.space.get_bounds())
+            with span("lp.estimate_L"):
+                L = estimate_L(acq.model, acq.space.get_bounds())
             seconds["estimate_L"] = time.perf_counter() - t0
             Min = acq.model.Y_min()
         while X_batch.shape[0] < self.batch_size:
             acq.update_batches(X_batch, L, Min)
             t0 = time.perf_counter()
-            new_sample, _ = acq.optimize(duplicate_manager=duplicate_manager)
+            with span("lp.argmax"):
+                new_sample, _ = acq.optimize(duplicate_manager=duplicate_manager)
             seconds["argmax"].append(time.perf_counter() - t0)
             X_batch = np.vstack((X_batch, new_sample))
         acq.update_batches(None, None, None)

@@ -28,6 +28,7 @@ import torch
 
 from ..ops import lbfgs
 from ..parallel import sharded
+from ..utils.profiling import host, span
 from .anchor_points import ObjectiveAnchorPointsGenerator
 from .designs import initial_design
 from .variables import FullyExploredOptimizationDomainError
@@ -146,27 +147,28 @@ class AcquisitionOptimizer:
         def score(Xm):
             with torch.no_grad():
                 if self.mesh is None:
-                    return neg_acq(t(Xm), args).cpu().numpy()
+                    return host(neg_acq(t(Xm), args)).numpy()
                 Xp, n = self._pad_rows(Xm)
-                return sweep(args, t(Xp))[:n].cpu().numpy()
+                return host(sweep(args, t(Xp))[:n]).numpy()
 
         # 1) anchor sweep: sample, drop duplicates, score, best num_anchor
-        self._seed += 1
-        X_obj = initial_design(self.design_type, space, self.num_samples, seed=self._seed)
-        if duplicate_manager:
-            keep = [i for i, x in enumerate(X_obj)
-                    if not duplicate_manager.is_zipped_x_duplicate(x)]
-            if not keep:
-                raise FullyExploredOptimizationDomainError(
-                    "The whole search domain has been explored; no unique anchor points.")
-            X_obj = X_obj[keep]
-        Xm = space.unzip_inputs(X_obj)
-        if cm is not None:
-            Xm = cm.apply_context(Xm)
-        scores = score(Xm)
-        if space.has_constraints():
-            scores = np.where(space.indicator_constraints(Xm).flatten() == 1, scores, np.inf)
-        anchors = Xm[np.argsort(scores)[:self.num_anchor]]
+        with span("acq.sweep"):
+            self._seed += 1
+            X_obj = initial_design(self.design_type, space, self.num_samples, seed=self._seed)
+            if duplicate_manager:
+                keep = [i for i, x in enumerate(X_obj)
+                        if not duplicate_manager.is_zipped_x_duplicate(x)]
+                if not keep:
+                    raise FullyExploredOptimizationDomainError(
+                        "The whole search domain has been explored; no unique anchor points.")
+                X_obj = X_obj[keep]
+            Xm = space.unzip_inputs(X_obj)
+            if cm is not None:
+                Xm = cm.apply_context(Xm)
+            scores = score(Xm)
+            if space.has_constraints():
+                scores = np.where(space.indicator_constraints(Xm).flatten() == 1, scores, np.inf)
+            anchors = Xm[np.argsort(scores)[:self.num_anchor]]
 
         # 2) box-bounded L-BFGS, one lane per anchor (context dims collapsed);
         #    an acquisition without gradients (entropy search's argmin counts)
@@ -180,17 +182,19 @@ class AcquisitionOptimizer:
                 fun = sharded.sharded_lanes(
                     self.mesh, neg_acq, [sharded.place(args, d) for d in self.mesh.shards()])
                 starts, n = self._pad_rows(anchors)
-            res = lbfgs.minimize(fun, t(starts), lower=t(lo), upper=t(hi),
-                                 maxiter=self.maxiter, carry_graph=False)
-            xs = res.x[:n].cpu().numpy()
+            with span("acq.lbfgs"):
+                res = lbfgs.minimize(fun, t(starts), lower=t(lo), upper=t(hi),
+                                     maxiter=self.maxiter, carry_graph=False)
+                xs = host(res.x[:n]).numpy()
 
         # 3) round, re-apply context, re-score, drop duplicates, select; the
         #    anchors are the fallback
-        C = np.vstack([self._rounded(x) for x in xs] + list(anchors))
-        fC = score(C)
-        if space.has_constraints():
-            fC = np.where(space.indicator_constraints(C).flatten() == 1, fC, np.inf)
-        return self._select(C, fC, duplicate_manager)
+        with span("acq.select"):
+            C = np.vstack([self._rounded(x) for x in xs] + list(anchors))
+            fC = score(C)
+            if space.has_constraints():
+                fC = np.where(space.indicator_constraints(C).flatten() == 1, fC, np.inf)
+            return self._select(C, fC, duplicate_manager)
 
     def _pad_rows(self, X):
         """``(X padded with copies of its first row up to a multiple of the

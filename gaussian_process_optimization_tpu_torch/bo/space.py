@@ -17,6 +17,7 @@ import itertools
 
 import numpy as np
 
+from ..utils.profiling import spanned
 from .variables import InvalidConfigError, Variable, create_variable
 
 
@@ -135,6 +136,7 @@ class DesignSpace:
                 out.append(val)
         return out
 
+    @spanned("space.unzip")
     def unzip_inputs(self, X):
         """(n, objective_dim) -> (n, model_dim) (space.py:220)."""
         X = np.atleast_2d(np.asarray(X, dtype=float))

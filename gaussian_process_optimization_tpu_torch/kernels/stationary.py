@@ -19,6 +19,7 @@ import torch
 
 from ..config import resolve_device, resolve_dtype
 from ..ops import cuda_kernels
+from ..utils.profiling import spanned
 from .base import Kernel
 
 
@@ -140,6 +141,7 @@ class Stationary(Kernel):
             return sq_dist(X / ls, None if X2 is None else X2 / ls)
         return sq_dist(X, X2) / torch.square(self._lane(self.lengthscale))
 
+    @spanned("kern.K")
     def K(self, X, X2=None):
         X = self._slice(X)
         X2 = self._slice(X2)

@@ -43,6 +43,7 @@ from .fit import Fitter
 from .gp import GPRegression
 from ..utils.tree import leaf_name, named_leaves
 from .parameters import bounded_noise_transform
+from ..utils.profiling import host, span
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -175,12 +176,13 @@ class GPModel(BOModel):
         if self.max_iters > 0:
             self.model, _ = self._fitter_for(bucket)(self.model, self.generator)
         # the posterior re-verifies the minimal rung; it is the next refit's hint
-        with torch.no_grad():
+        with span("gp.posterior"), torch.no_grad():
             self.posterior = dataclasses.replace(self.model, jitter_greedy=False).inference(
                 precompute_inverse=True)
         self.model = dataclasses.replace(self.model,
                                          jitter_hint=self.posterior.rung.to(torch.float32))
-        self.ladder.append({"fit_hint": int(hint), "posterior_rung": int(self.posterior.rung)})
+        self.ladder.append({"fit_hint": int(host(hint)),
+                            "posterior_rung": int(host(self.posterior.rung))})
         self._fmin = None
 
     def predict(self, X):
@@ -211,7 +213,7 @@ class GPModel(BOModel):
         cached per refit."""
         if self._fmin is None:
             with torch.no_grad():
-                self._fmin = float(masked_fmin(self.model, self.posterior))
+                self._fmin = float(host(masked_fmin(self.model, self.posterior)))
         return self._fmin
 
     def Y_min(self) -> float:
@@ -272,7 +274,7 @@ def masked_fmin(gp, posterior) -> torch.Tensor:
 def real_Y_min(gp) -> float:
     """Smallest real training target, LP's ``Min`` (batch_local_penalization.py:44)."""
     Y = gp.Y if gp.mask is None else gp.Y[gp.mask > 0]
-    return float(Y.min())
+    return float(host(Y.min()))
 
 
 def default_noise(noise_var, exact_feval, Y) -> float:

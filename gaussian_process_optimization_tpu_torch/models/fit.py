@@ -18,6 +18,7 @@ import torch
 from ..config import config
 from ..ops import lbfgs
 from ..utils.priors import Prior
+from ..utils.profiling import host, spanned
 from ..utils.tree import leaf_name, named_leaves
 from .parameters import make_packer
 
@@ -156,6 +157,7 @@ class Fitter:
                         dtype=u0.dtype, device=u0.device)
         return torch.cat([u0[None], self.packer.map_restart(z)])
 
+    @spanned("fit.solve")
     def solve(self, model, starts: torch.Tensor):
         """Run the lanes from ``starts``; returns ``(fitted model, LBFGSResult)``
         with the best finite lane's parameters. ``evaluations`` counts the
@@ -190,7 +192,7 @@ class Fitter:
                              grow_backtracked=self.grow_backtracked, aux0=aux0,
                              trace=self.trace)
         f = torch.where(torch.isfinite(res.f), res.f, torch.full_like(res.f, float("inf")))
-        best = int(torch.argmin(f))
+        best = int(host(torch.argmin(f)))
         return self.packer.unpack(res.x[best], reference=model), res
 
     def __call__(self, model, generator: torch.Generator | None = None):

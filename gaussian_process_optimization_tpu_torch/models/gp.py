@@ -32,6 +32,7 @@ from ..kernels.base import Kernel
 from ..kernels.stationary import RBF
 from ..ops import linalg
 from ..utils.normalizer import Standardize
+from ..utils.profiling import spanned
 from .mean_functions import Mapping
 
 LOG_2_PI = math.log(2.0 * math.pi)
@@ -96,6 +97,7 @@ class ExactCore(torch.autograd.Function):
     ``config.grad_matmul_precision``, as the reference's ``_exact_core_bwd``."""
 
     @staticmethod
+    @spanned("gp.exact_fwd")
     def forward(ctx, Ky, Yc, hint, greedy):
         L, jitter, ok, rung = linalg.jitchol_full(Ky, k_start=hint, greedy=greedy)
         t = linalg.blocked_solve_lower(L, Yc)
@@ -107,6 +109,7 @@ class ExactCore(torch.autograd.Function):
         return logdet, quad, L, t, jitter, ok, rung
 
     @staticmethod
+    @spanned("gp.exact_bwd")
     def backward(ctx, c_logdet, c_quad, *_):
         L, t = ctx.saved_tensors
         # the gradient-only precision (config.grad_matmul_precision): these

@@ -23,9 +23,10 @@ registers, chunks of 8 above) pick a template instantiation; the wrappers pad
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; a CPU tensor takes the plain PyTorch version beside it
 (the same explicit-difference arithmetic). Routing into the wrappers is the
-reference's gate, :func:`supports`. ``launches`` on each wrapper counts kernel
-launches; the backward's ``launches_dx`` and ``launches_dz`` count, of those,
-the row passes that wrote dX and the column (dZ) passes.
+reference's gate, :func:`supports`. Launches are counted in
+``utils.profiling.counters``: ``b1.launches`` the build's, ``b2.launches`` the
+backward's, and of those ``b2.launches_dx`` the row passes that wrote dX and
+``b2.launches_dz`` the column (dZ) passes.
 
 Shapes: ``X (Bx, N, D)``, ``Z (Bz, M, D)``, ``params (Bp, W)`` with each of
 ``Bx, Bz, Bp`` either 1 (shared by all lanes) or ``B``. The params row per lane
@@ -39,6 +40,7 @@ import math
 import torch
 
 from ..config import kernels_enabled
+from ..utils.profiling import counters
 from . import _build
 
 FAMILIES = ("rbf", "exponential", "ou", "matern32", "matern52", "cosine", "ratquad")
@@ -241,11 +243,8 @@ def stationary_k_build(X, Z, params, family: str, ard: bool) -> torch.Tensor:
             Xp.data_ptr(), Zp.data_ptr(), params.data_ptr(), out.data_ptr(), B, N, M, D,
             Xp.shape[-1], params.shape[1], _lane_stride(Xp), _lane_stride(Zp),
             FAMILIES.index(family), int(ard), _stream()), "stationary_k_build")
-        stationary_k_build.launches += 1
+        counters["b1.launches"] += 1
     return out
-
-
-stationary_k_build.launches = 0
 
 
 def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
@@ -284,8 +283,8 @@ def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
             dX.data_ptr() if need_dx else None,
             partials.data_ptr() if need_params else None, *common),
             "stationary_k_backward (row pass)")
-        stationary_k_backward.launches += 1
-        stationary_k_backward.launches_dx += int(need_dx)
+        counters["b2.launches"] += 1
+        counters["b2.launches_dx"] += int(need_dx)
         if need_params:
             dparams = torch.empty(B, W, **new)
             _build.check(lib.gpo_sum_partials(partials.data_ptr(), dparams.data_ptr(),
@@ -297,19 +296,13 @@ def stationary_k_backward(X, Z, params, G, family: str, ard: bool, need_dx=True,
         _build.check(lib.gpo_stationary_k_bwd_cols(
             Xp.data_ptr(), Zp.data_ptr(), params.data_ptr(), G.data_ptr(),
             scratch.data_ptr(), *common), "stationary_k_backward (column pass)")
-        stationary_k_backward.launches += 1
-        stationary_k_backward.launches_dz += 1
+        counters["b2.launches"] += 1
+        counters["b2.launches_dz"] += 1
         dZ = torch.empty(B, M, D, **new)
         _build.check(lib.gpo_sum_partials(scratch.data_ptr(), dZ.data_ptr(), B, strips,
                                           M * D, _stream()),
                      "stationary_k_backward (strip sums)")
     return dparams, dX, dZ
-
-
-stationary_k_backward.launches = 0
-# of those: row passes that also wrote dX, and column (dZ) passes
-stationary_k_backward.launches_dx = 0
-stationary_k_backward.launches_dz = 0
 
 
 def _sum_to_lanes(g, lanes: int):

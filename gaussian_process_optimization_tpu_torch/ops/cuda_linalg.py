@@ -21,12 +21,15 @@ which the kernel's C entry checks before it launches); anything else,
 and every CPU tensor, takes the plain version beside the kernel: a triangular
 solve against the identity, and ``cholesky_ex`` with the lanes it reports as
 failed set to NaN (the reference's fallback, XLA's Cholesky, returns NaN there).
+Launches are counted in ``utils.profiling.counters``: ``b3.launches`` and
+``b4.launches``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config import kernels_enabled
+from ..utils.profiling import counters
 from . import _build
 
 _MB = 32  # tile edge of the kernels; the gate's block multiple
@@ -68,11 +71,8 @@ def tri_inv_blocks(A: torch.Tensor) -> torch.Tensor:
         _build.check(lib.gpo_tri_inv_blocks(
             flat.data_ptr(), out.data_ptr(), flat.shape[0], nb,
             torch.cuda.current_stream().cuda_stream), "tri_inv_blocks")
-        tri_inv_blocks.launches += 1
+        counters["b3.launches"] += 1
     return out.reshape(A.shape)
-
-
-tri_inv_blocks.launches = 0
 
 
 def cholesky_blocks(A: torch.Tensor) -> torch.Tensor:
@@ -89,8 +89,5 @@ def cholesky_blocks(A: torch.Tensor) -> torch.Tensor:
         _build.check(lib.gpo_cholesky_blocks(
             flat.data_ptr(), out.data_ptr(), flat.shape[0], nb,
             torch.cuda.current_stream().cuda_stream), "cholesky_blocks")
-        cholesky_blocks.launches += 1
+        counters["b4.launches"] += 1
     return out.reshape(A.shape)
-
-
-cholesky_blocks.launches = 0

@@ -29,12 +29,20 @@ condition against its own Zhang-Hager average of past values;
 ``grow_backtracked`` sets the warm start's growth after a backtracked accept;
 ``aux0`` threads a per-lane aux tensor through the objective, each lane
 receiving the aux of its own last accepted evaluation.
+
+Tracing (``utils.profiling``): each iteration is a ``lbfgs.step`` span and
+counts in ``lbfgs.iters``; each objective call, with its gradient, is a
+``lbfgs.eval`` span and counts in ``lbfgs.evals`` (a carried trial's later
+gradient is a ``lbfgs.eval`` span of its own, not counted again); the host's
+reads of the lane masks go through ``profiling.host``.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils.profiling import counters, host, span
 
 
 class LBFGSResult(NamedTuple):
@@ -126,6 +134,7 @@ def minimize(fun: Callable, x0: torch.Tensor, lower=None, upper=None, maxiter: i
 
     def call(x, aux):
         """``(f, aux_out)``; ``aux_out`` None without the aux channel."""
+        counters["lbfgs.evals"] += 1
         if not has_aux:
             return fun(x), None
         f, aux_out = fun(x, aux)
@@ -143,7 +152,7 @@ def minimize(fun: Callable, x0: torch.Tensor, lower=None, upper=None, maxiter: i
 
     def value_and_grad(x, lanes, aux):
         xr = x.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with span("lbfgs.eval"), torch.enable_grad():
             f, aux_out = call(xr, aux)
             (g,) = torch.autograd.grad(f, xr, grad_outputs=lanes.to(dtype))
         return f.detach(), g, aux_out
@@ -184,12 +193,12 @@ def minimize(fun: Callable, x0: torch.Tensor, lower=None, upper=None, maxiter: i
             x_new = torch.where(searching[:, None], proj(x + t[:, None] * d), xb)
             if carry_graph:
                 xr = x_new.detach().requires_grad_(True)
-                with torch.enable_grad():
+                with span("lbfgs.eval"), torch.enable_grad():
                     f_graph, aux_new = call(xr, aux)
                 f_new = f_graph.detach()
                 handle = (xr, f_graph)
             else:
-                with torch.no_grad():
+                with span("lbfgs.eval"), torch.no_grad():
                     f_new, aux_new = call(x_new, aux)
                 handle = None
             ok = torch.isfinite(f_new) & (
@@ -203,10 +212,10 @@ def minimize(fun: Callable, x0: torch.Tensor, lower=None, upper=None, maxiter: i
         stops = []  # (graph handle, lanes that stopped on that trial)
         pending = active & ~ok
         stopped = active & ~pending
-        if carry_graph and bool(stopped.any()):
+        if carry_graph and bool(host(stopped.any())):
             stops.append((handle, stopped))
         del handle
-        while bool(pending.any()):
+        while bool(host(pending.any())):
             denom = 2.0 * (f_acc - f - md * t)
             t_q = torch.where(denom > 0, -md * t * t / denom, 0.5 * t)
             t_q = torch.where(torch.isfinite(t_q), t_q, 0.5 * t)
@@ -221,14 +230,15 @@ def minimize(fun: Callable, x0: torch.Tensor, lower=None, upper=None, maxiter: i
             it = it + pending.to(it.dtype)
             stopped = pending & (ok_new | (it >= max_ls))
             pending = pending & ~stopped
-            if carry_graph and bool(stopped.any()):
+            if carry_graph and bool(host(stopped.any())):
                 stops.append((handle, stopped))
             del handle
         if carry_graph:
             g_new = torch.zeros_like(g)
             while stops:
                 (xr, f_graph), lanes = stops.pop(0)
-                (gr,) = torch.autograd.grad(f_graph, xr, grad_outputs=lanes.to(dtype))
+                with span("lbfgs.eval"):
+                    (gr,) = torch.autograd.grad(f_graph, xr, grad_outputs=lanes.to(dtype))
                 g_new = torch.where(lanes[:, None], gr, g_new)
                 del xr, f_graph, gr
         else:
@@ -237,60 +247,63 @@ def minimize(fun: Callable, x0: torch.Tensor, lower=None, upper=None, maxiter: i
 
     while True:
         active = ~frozen & (k < maxiter)
-        if not bool(active.any()):
+        if not bool(host(active.any())):
             break
-        d = _two_loop(k, g, S, Ys, rho, gamma, m)
-        descent = torch.sum(g * d, dim=-1) < 0
-        d = torch.where(descent[:, None], d, -g)
-        # first iteration: raw gradient scaled to unit infinity-norm
-        scale = torch.clamp(torch.max(torch.abs(d), dim=-1).values, min=1.0)
-        d = torch.where((k == 0)[:, None], d / scale[:, None], d)
-        # C >= f by construction (Zhang & Hager lemma 1.1); the max guards
-        # rounding. Without the option the reference is f itself.
-        fref = torch.maximum(f, C) if eta > 0.0 else f
-        x_new, f_new, g_new, ls_ok, n_trials, t_acc, aux_new = line_search(d, active, fref)
+        counters["lbfgs.iters"] += 1
+        with span("lbfgs.step"):
+            d = _two_loop(k, g, S, Ys, rho, gamma, m)
+            descent = torch.sum(g * d, dim=-1) < 0
+            d = torch.where(descent[:, None], d, -g)
+            # first iteration: raw gradient scaled to unit infinity-norm
+            scale = torch.clamp(torch.max(torch.abs(d), dim=-1).values, min=1.0)
+            d = torch.where((k == 0)[:, None], d / scale[:, None], d)
+            # C >= f by construction (Zhang & Hager lemma 1.1); the max guards
+            # rounding. Without the option the reference is f itself.
+            fref = torch.maximum(f, C) if eta > 0.0 else f
+            x_new, f_new, g_new, ls_ok, n_trials, t_acc, aux_new = line_search(d, active, fref)
 
-        def upd(new, old):
-            return rows(active, new, old)
+            def upd(new, old):
+                return rows(active, new, old)
 
-        n_ls = upd(n_ls + n_trials, n_ls)
-        # next first trial: grow the accepted step 4x after a clean first-trial
-        # accept, grow_backtracked after a backtracked one, capped at 1; reset
-        # after a failure
-        grow = torch.where(n_trials == 1, torch.full_like(t_acc, 4.0),
-                           torch.full_like(t_acc, grow_backtracked))
-        t_init = upd(torch.where(ls_ok, torch.clamp(grow * t_acc, max=1.0),
-                                 torch.ones_like(t_acc)), t_init)
-        s = x_new - x
-        y = g_new - g
-        sy = torch.sum(s * y, dim=-1)
-        good = sy > 1e-10 * torch.linalg.vector_norm(s, dim=-1) \
-            * torch.linalg.vector_norm(y, dim=-1)
-        slot = torch.remainder(k, m)
-        lanes = torch.arange(B, device=dev)
-        S_slot, Y_slot = S[lanes, slot], Ys[lanes, slot]
-        S[lanes, slot] = upd(torch.where(good[:, None], s, S_slot * 0.0), S_slot)
-        Ys[lanes, slot] = upd(torch.where(good[:, None], y, Y_slot * 0.0), Y_slot)
-        rho[lanes, slot] = upd(torch.where(good, 1.0 / sy, torch.zeros_like(sy)),
-                               rho[lanes, slot])
-        gamma = upd(torch.where(good, sy / torch.sum(y * y, dim=-1), gamma), gamma)
-        better = active & (f_new < fb)
-        xb = torch.where(better[:, None], x_new, xb)
-        fb = torch.where(better, f_new, fb)
-        small = torch.max(torch.abs(proj_grad(x_new, g_new)), dim=-1).values < tol
-        ls_failed = ls_failed | (active & ~ls_ok)
-        frozen = frozen | (active & (small | ~ls_ok))
-        if eta > 0.0:
-            Q_new = eta * Q + 1.0
-            C = upd((eta * Q * C + f_new) / Q_new, C)
-            Q = upd(Q_new, Q)
-        if has_aux:
-            aux = upd(aux_new, aux)
-        if trace:  # column k + 1 of each stepping lane
-            col = torch.clamp(k + 1, max=maxiter)[:, None]
-            ftrace.scatter_(1, col, torch.where(active, f_new, ftrace.gather(1, col)[:, 0])[:, None])
-        x, f, g = upd(x_new, x), upd(f_new, f), upd(g_new, g)
-        k = k + active.to(k.dtype)
+            n_ls = upd(n_ls + n_trials, n_ls)
+            # next first trial: grow the accepted step 4x after a clean first-trial
+            # accept, grow_backtracked after a backtracked one, capped at 1; reset
+            # after a failure
+            grow = torch.where(n_trials == 1, torch.full_like(t_acc, 4.0),
+                               torch.full_like(t_acc, grow_backtracked))
+            t_init = upd(torch.where(ls_ok, torch.clamp(grow * t_acc, max=1.0),
+                                     torch.ones_like(t_acc)), t_init)
+            s = x_new - x
+            y = g_new - g
+            sy = torch.sum(s * y, dim=-1)
+            good = sy > 1e-10 * torch.linalg.vector_norm(s, dim=-1) \
+                * torch.linalg.vector_norm(y, dim=-1)
+            slot = torch.remainder(k, m)
+            lanes = torch.arange(B, device=dev)
+            S_slot, Y_slot = S[lanes, slot], Ys[lanes, slot]
+            S[lanes, slot] = upd(torch.where(good[:, None], s, S_slot * 0.0), S_slot)
+            Ys[lanes, slot] = upd(torch.where(good[:, None], y, Y_slot * 0.0), Y_slot)
+            rho[lanes, slot] = upd(torch.where(good, 1.0 / sy, torch.zeros_like(sy)),
+                                   rho[lanes, slot])
+            gamma = upd(torch.where(good, sy / torch.sum(y * y, dim=-1), gamma), gamma)
+            better = active & (f_new < fb)
+            xb = torch.where(better[:, None], x_new, xb)
+            fb = torch.where(better, f_new, fb)
+            small = torch.max(torch.abs(proj_grad(x_new, g_new)), dim=-1).values < tol
+            ls_failed = ls_failed | (active & ~ls_ok)
+            frozen = frozen | (active & (small | ~ls_ok))
+            if eta > 0.0:
+                Q_new = eta * Q + 1.0
+                C = upd((eta * Q * C + f_new) / Q_new, C)
+                Q = upd(Q_new, Q)
+            if has_aux:
+                aux = upd(aux_new, aux)
+            if trace:  # column k + 1 of each stepping lane
+                col = torch.clamp(k + 1, max=maxiter)[:, None]
+                ftrace.scatter_(1, col, torch.where(active, f_new,
+                                                    ftrace.gather(1, col)[:, 0])[:, None])
+            x, f, g = upd(x_new, x), upd(f_new, f), upd(g_new, g)
+            k = k + active.to(k.dtype)
 
     bad_start = ~torch.isfinite(f0)
     xb = torch.where(bad_start[:, None], x0, xb)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..config import config
+from ..utils.profiling import counters, host, spanned
 from . import cuda_linalg
 
 
@@ -83,6 +84,7 @@ def _bf16_passes(Ah, Al, Bh, Bl, precision):
     return (_mm_bf16(Ah, Bl) + _mm_bf16(Al, Bh)) + _mm_bf16(Ah, Bh)
 
 
+@spanned("linalg.tri_tdot")
 def tri_tdot(Li: torch.Tensor, nb: int = 512, precision=None) -> torch.Tensor:
     """Li^T Li for lower-triangular Li, blocked so only nonzero panels multiply
     (the LAPACK ``lauum`` shape). Exactly symmetric by construction. Each
@@ -145,6 +147,7 @@ def blocked_cholesky(A: torch.Tensor, nb: int = 256) -> torch.Tensor:
     return L
 
 
+@spanned("chol.ladder")
 def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
                  greedy: bool = False):
     """Jitter-ladder Cholesky, per lane: ``(L, jitter, ok, rung)``.
@@ -157,7 +160,8 @@ def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
     ``greedy=True`` is the reference's fit-trial policy: each lane walks up from
     its hint and keeps its first success, which may lie above the minimal rung.
 
-    Each attempt is one factorization of every lane: ``blocked_cholesky`` when
+    Each attempt is one factorization of every lane, counted in
+    ``chol.factorizations`` (``utils.profiling``): ``blocked_cholesky`` when
     ``config.cuda_chol_blocks`` is on (itself ``cholesky_ex`` below two
     256-blocks), else ``cholesky_ex``. The per-lane verdict is finiteness, as in the
     reference, because both routes return a failed lane as NaN:
@@ -177,6 +181,7 @@ def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
     factor = blocked_cholesky if config.cuda_chol_blocks else cuda_linalg.cholesky_plain
 
     def attempt(k):
+        counters["chol.factorizations"] += 1
         scale = torch.pow(10.0, torch.clamp(k - 1, min=0).to(A.dtype))
         jitter = torch.where(k == 0, torch.zeros_like(diag_mean),
                              diag_mean * config.jitchol_base * scale)
@@ -199,7 +204,7 @@ def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
     if greedy:
         k = h
         done = ok_b | (h >= maxtries)
-        while not bool(done.all()):
+        while not bool(host(done.all())):
             k = torch.where(done, k, k + 1)
             L, jitter, ok = attempt(k)
             take = ~done  # a searching lane records its success or its latest failure
@@ -214,7 +219,7 @@ def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
     hi = torch.where(ok_b, h, torch.full_like(h, maxtries))
     done = (ok_b & (lo == hi)) | (lo > hi)
     step = torch.ones_like(lo)
-    while not bool(done.all()):
+    while not bool(host(done.all())):
         # galloping probe: downward from hi once a success is in hand,
         # upward from lo (lo, lo+1, lo+3, ...) before
         mid = torch.where(ok_b, torch.maximum(lo, hi - step),
@@ -321,6 +326,7 @@ def blocked_solve_lower(L: torch.Tensor, B: torch.Tensor, nb: int = 512) -> torc
     return x
 
 
+@spanned("linalg.tri_inv")
 def tri_inv_lower(L: torch.Tensor, block: int = 256, precision=None) -> torch.Tensor:
     """L^-1 for lower-triangular L by divide and conquer: invert the diagonal
     ``block`` blocks in one batched call (the triangular-inverse kernel when

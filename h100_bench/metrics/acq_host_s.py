@@ -1,0 +1,12 @@
+"""Acquisition and batch: the host's own seconds in a round's batch, each
+profiled round's ``bo.batch`` span less the ``host.sync`` spans inside it, in
+which the host waited for the card; read under the profiler, so it carries
+the profiler's launch slowdown (bo/bo_loop.py, bo/optimizer.py,
+bo/evaluators.py)."""
+UNIT = "s"
+
+
+def read(ctx):
+    from h100_bench import program_spans
+
+    return program_spans.host_s("bo.batch")

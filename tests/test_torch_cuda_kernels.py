@@ -19,6 +19,7 @@ from gaussian_process_optimization_tpu_torch.models.parameters import make_packe
 from gaussian_process_optimization_tpu_torch.config import config
 from gaussian_process_optimization_tpu_torch.parallel import sharded
 from gaussian_process_optimization_tpu_torch.utils import cluster
+from gaussian_process_optimization_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
 
@@ -275,8 +276,8 @@ def test_lml_gradient_f32_kernels_match_f64(cuda):
     X, Y = bench_data(n=600)
     m32 = make_model(X, Y, dtype=torch.float32, device=cuda)
     m64 = make_model(X, Y, dtype=torch.float64, device=cuda)
-    before = (ck.stationary_k_build.launches, ck.stationary_k_backward.launches,
-              cl.tri_inv_blocks.launches)
+    before = (counters["b1.launches"], counters["b2.launches"],
+              counters["b3.launches"])
     out = []
     for m in (m32, m64):
         packer = make_packer(m)
@@ -284,8 +285,8 @@ def test_lml_gradient_f32_kernels_match_f64(cuda):
         f = make_objective(packer)(U, m)
         (g,) = torch.autograd.grad(f.sum(), U)
         out.append((f.detach().double(), g.double()))
-    after = (ck.stationary_k_build.launches, ck.stationary_k_backward.launches,
-             cl.tri_inv_blocks.launches)
+    after = (counters["b1.launches"], counters["b2.launches"],
+             counters["b3.launches"])
     assert all(a > b for a, b in zip(after, before))
     (f32, g32), (f64, g64) = out
     # about 10x the readings on an H100: value rel 4.2e-8, gradient rel 1.6e-6
@@ -371,13 +372,13 @@ def test_linalg_wrappers_raise_when_tiles_do_not_fit(cuda):
     block can have on an H100 raises in the wrapper and launches nothing; one
     tile row less launches. B4 holds the lower triangle's 32 x 32 tiles (fits
     up to nb = 320), B3 a 32-column strip and five tiles (up to nb = 1632)."""
-    before = cl.tri_inv_blocks.launches, cl.cholesky_blocks.launches
+    before = counters["b3.launches"], counters["b4.launches"]
     for fn, nb in ((cl.cholesky_blocks, 352), (cl.tri_inv_blocks, 1664)):
         A = torch.eye(nb, device=cuda)[None]
         with pytest.raises(ValueError, match="shared memory"):
             fn(A)
         fn(A[:, 32:, 32:].contiguous())  # one tile row less fits and launches
-    assert (cl.tri_inv_blocks.launches, cl.cholesky_blocks.launches) == (before[0] + 1,
+    assert (counters["b3.launches"], counters["b4.launches"]) == (before[0] + 1,
                                                                           before[1] + 1)
 
 
@@ -393,14 +394,14 @@ def test_blocked_ladder_through_b4_matches_cholesky_ex(cuda):
     m = make_model(X, Y, dtype=torch.float32, device=cuda)
     Ky = m.kern.K(m.X) + 0.05 * torch.eye(1024, device=cuda)
     Ky = torch.stack([Ky, Ky * 2.0])
-    before = cl.cholesky_blocks.launches
+    before = counters["b4.launches"]
     old = config.cuda_chol_blocks
     try:
         config.cuda_chol_blocks = True
         L, _, ok, rung = linalg.jitchol_full(Ky)
     finally:
         config.cuda_chol_blocks = old
-    assert cl.cholesky_blocks.launches > before
+    assert counters["b4.launches"] > before
     L0, _, ok0, rung0 = linalg.jitchol_full(Ky)
     assert bool(ok.all()) and torch.equal(rung, rung0)
     for f in (L, L0):
@@ -443,13 +444,13 @@ def test_composite_kernel_route_matches_plain_route(op, lanes, cuda):
         finally:
             config.use_cuda_kernels = old
 
-    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    counters["b1.launches"] = counters["b2.launches"] = 0
     K, grads = run("auto")
-    assert ck.stationary_k_build.launches == (2 if op == "add" else 4)
-    assert ck.stationary_k_backward.launches == 2
-    launches = ck.stationary_k_build.launches
+    assert counters["b1.launches"] == (2 if op == "add" else 4)
+    assert counters["b2.launches"] == 2
+    launches = counters["b1.launches"]
     K_plain, grads_plain = run(False)
-    assert ck.stationary_k_build.launches == launches  # the plain route launches nothing
+    assert counters["b1.launches"] == launches  # the plain route launches nothing
     assert K.shape == ((lanes, 300, 300) if lanes > 1 else (300, 300))
     torch.testing.assert_close(K, K_plain, rtol=2e-5, atol=2e-6)
     for a, b in zip(grads, grads_plain):
@@ -483,10 +484,10 @@ def test_sparse_kmn_and_z_gradient_match_plain(n, cuda):
         finally:
             config.use_cuda_kernels = old
 
-    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
-    ck.stationary_k_backward.launches_dx = 0
+    counters["b1.launches"] = counters["b2.launches"] = 0
+    counters["b2.launches_dx"] = 0
     got = run("auto")
-    assert ck.stationary_k_build.launches == 1 and ck.stationary_k_backward.launches_dx == 1
+    assert counters["b1.launches"] == 1 and counters["b2.launches_dx"] == 1
     want = run(False)
     torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-6)
     for a, b in zip(got[1:], want[1:]):
@@ -526,11 +527,11 @@ def test_mcmc_update_launches_the_kernels(cuda):
     model = GPModel_MCMC(n_samples=3, n_burnin=2, subsample_interval=2, leapfrog_steps=3,
                          device=cuda)
     assert model.dtype == torch.float32
-    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
-    cl.tri_inv_blocks.launches = 0
+    counters["b1.launches"] = counters["b2.launches"] = 0
+    counters["b3.launches"] = 0
     model.updateModel(X, Y)
-    assert ck.stationary_k_build.launches > 0 and ck.stationary_k_backward.launches > 0
-    assert cl.tri_inv_blocks.launches > 0
+    assert counters["b1.launches"] > 0 and counters["b2.launches"] > 0
+    assert counters["b3.launches"] > 0
     assert np.all(np.isfinite(model.hmc_samples)) and model.hmc_samples.shape[0] == 3
 
 
@@ -546,9 +547,9 @@ def test_bare_bayesian_optimization_runs_float32_kernels(cuda):
     X = np.random.default_rng(0).uniform(-2, 2, (200, 2))
     bo = BayesianOptimization(f, bounds_to_space([(-2.0, 2.0)] * 2), X=X, max_iters=5)
     assert bo.model.device.type == "cuda" and bo.model.dtype == torch.float32
-    ck.stationary_k_build.launches = 0
+    counters["b1.launches"] = 0
     x = bo.suggest_next_locations()
-    assert ck.stationary_k_build.launches > 0
+    assert counters["b1.launches"] > 0
     assert x.shape == (1, 2) and np.all(np.abs(x) <= 2.0)
 
 
@@ -587,11 +588,11 @@ def test_svgp_elbo_launches_and_z_gradient_match_plain(batch, cuda):
         finally:
             config.use_cuda_kernels = old
 
-    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
-    ck.stationary_k_backward.launches_dx = ck.stationary_k_backward.launches_dz = 0
+    counters["b1.launches"] = counters["b2.launches"] = 0
+    counters["b2.launches_dx"] = counters["b2.launches_dz"] = 0
     got = run("auto")
-    assert ck.stationary_k_build.launches == 2
-    assert ck.stationary_k_backward.launches_dx == 2 and ck.stationary_k_backward.launches_dz == 1
+    assert counters["b1.launches"] == 2
+    assert counters["b2.launches_dx"] == 2 and counters["b2.launches_dz"] == 1
     plain = run(False)
     ref = run(False, torch.float64)
     for a, b, r in zip(got, plain, ref):
@@ -639,9 +640,9 @@ def test_approximate_inference_launches_the_kernels(which, cuda):
         finally:
             config.use_cuda_kernels = old
 
-    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    counters["b1.launches"] = counters["b2.launches"] = 0
     got = run("auto")
-    assert ck.stationary_k_build.launches >= 1 and ck.stationary_k_backward.launches >= 1
+    assert counters["b1.launches"] >= 1 and counters["b2.launches"] >= 1
     want = run(False)
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-3 * float(want[1].abs().max()))
@@ -684,11 +685,11 @@ def test_icm_product_with_active_dims_matches_plain_route(lanes, cuda):
         finally:
             config.use_cuda_kernels = old
 
-    ck.stationary_k_build.launches = ck.stationary_k_backward.launches = 0
+    counters["b1.launches"] = counters["b2.launches"] = 0
     K, grads = run("auto")
-    assert ck.stationary_k_build.launches == 2
+    assert counters["b1.launches"] == 2
     # X is both arguments and gets a gradient: the row pass and the column pass
-    assert ck.stationary_k_backward.launches == 2
+    assert counters["b2.launches"] == 2
     K_plain, grads_plain = run(False)
     torch.testing.assert_close(K, K_plain, rtol=2e-5, atol=2e-6)
     # the leaves' gradients; X's only on its task column (the plain route's
@@ -722,9 +723,9 @@ def test_icm_lml_through_b1_matches_plain_route(cuda):
         finally:
             config.use_cuda_kernels = old
 
-    ck.stationary_k_build.launches = cl.tri_inv_blocks.launches = 0
+    counters["b1.launches"] = counters["b3.launches"] = 0
     f_k, g_k = value_and_grad(model)
-    assert ck.stationary_k_build.launches > 0 and cl.tri_inv_blocks.launches > 0
+    assert counters["b1.launches"] > 0 and counters["b3.launches"] > 0
     f_p, g_p = value_and_grad(model, False)
     f64, g64 = value_and_grad(tree_map(lambda t: t.double(), model), False)
     scale = float(g64.abs().max())
@@ -757,10 +758,10 @@ def test_symmetric_k_x_gradient_is_row_plus_column_pass(lanes, cuda):
         (g,) = torch.autograd.grad(torch.sum(kern.K(X) * G.to(dtype)), X)
         return g
 
-    ck.stationary_k_backward.launches_dx = ck.stationary_k_backward.launches_dz = 0
+    counters["b2.launches_dx"] = counters["b2.launches_dz"] = 0
     got = grad(torch.float32)
-    assert ck.stationary_k_backward.launches_dx == 1
-    assert ck.stationary_k_backward.launches_dz == 1
+    assert counters["b2.launches_dx"] == 1
+    assert counters["b2.launches_dz"] == 1
     X3 = X0.contiguous()
     p = ck.params_rows(RBF(input_dim=6, variance=var, lengthscale=ls), 6, True)
     _, dX, dZ = ck.k_backward_plain(X3.double(), X3.double(), p.double(), G.double(), "rbf",
@@ -782,9 +783,9 @@ def test_padded_rows_of_a_trainable_x_get_zero_gradient_through_the_kernels(cuda
     m = GPRegression.create(m.X.cpu().numpy(), Y, kernel=m.kern, noise_var=0.1, max_points=512,
                             device=cuda)
     X = m.X.clone().requires_grad_(True)
-    ck.stationary_k_backward.launches_dz = 0
+    counters["b2.launches_dz"] = 0
     (g,) = torch.autograd.grad(dataclasses.replace(m, X=X).log_marginal_likelihood(), X)
-    assert ck.stationary_k_backward.launches_dz == 1
+    assert counters["b2.launches_dz"] == 1
     assert bool((g[400:] == 0).all()) and bool(torch.isfinite(g).all())
 
 
@@ -811,11 +812,11 @@ def test_gplvm_gradient_through_the_kernels_matches_plain_route(cuda):
         finally:
             config.use_cuda_kernels = old
 
-    for fn in (ck.stationary_k_build, ck.stationary_k_backward, cl.tri_inv_blocks):
-        fn.launches = 0
+    for name in ("b1.launches", "b2.launches", "b3.launches"):
+        counters[name] = 0
     got = grad(model, "auto")
-    assert ck.stationary_k_build.launches > 0 and ck.stationary_k_backward.launches > 0
-    assert cl.tri_inv_blocks.launches > 0
+    assert counters["b1.launches"] > 0 and counters["b2.launches"] > 0
+    assert counters["b3.launches"] > 0
     plain = grad(model, False)
     ref = grad(tree_map(lambda t: t.double(), model), False)
     scale = float(ref.abs().max())
@@ -841,9 +842,9 @@ def test_distributed_cholesky_through_the_kernel_matches_cholesky_ex(cuda, n_sha
         config.cuda_chol_blocks = False
         L_plain = chol(A)
         config.cuda_chol_blocks = True
-        before = cl.cholesky_blocks.launches
+        before = counters["b4.launches"]
         L_kernel = chol(A)
-        assert cl.cholesky_blocks.launches - before == 2048 // 256
+        assert counters["b4.launches"] - before == 2048 // 256
     finally:
         config.cuda_chol_blocks = old
     L64 = np.linalg.cholesky(A64)
@@ -881,9 +882,9 @@ def test_cluster_round_through_the_kernels_matches_plain_k(cuda):
         (g,) = torch.autograd.grad(f.sum(), U)
         return f.detach(), g, cluster.fit_batch(U0, *batch, True, 60)
 
-    b1, b2 = ck.stationary_k_build.launches, ck.stationary_k_backward.launches
+    b1, b2 = counters["b1.launches"], counters["b2.launches"]
     f, g, (ll, off) = start_and_fit()
-    assert ck.stationary_k_build.launches > b1 and ck.stationary_k_backward.launches > b2
+    assert counters["b1.launches"] > b1 and counters["b2.launches"] > b2
     old = config.use_cuda_kernels
     try:
         config.use_cuda_kernels = False
