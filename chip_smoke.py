@@ -24,8 +24,11 @@ Phases, each printing its own lines:
                 bound from the shapes (bytes at 3.35 TB/s or f32 flops at
                 67 TFLOP/s, the larger); times are medians of CUDA-event timings
                 of back-to-back calls after warm-up; and one full (5, 4096, 4096)
-                factorization timed three ways: cholesky_ex, blocked_cholesky with
-                B4, blocked_cholesky with plain diagonal blocks;
+                factorization timed four ways: cholesky_ex, blocked_cholesky with
+                B4, blocked_cholesky with plain diagonal blocks, and B5 (the
+                default ladder route), which is also checked and timed on the
+                MCMC lanes' (10, 4096, 4096) RBF Gram against float64,
+                cholesky_ex and its plain version;
   4. main     — one BO iteration at the bench's full size (N=4096, D=6, 5x30 fit,
                 1000-candidate EI sweep, 5x50 anchors, float32), twice; the second
                 run's launch counts of B1-B3 must be non-zero (B4 is off this
@@ -345,6 +348,55 @@ def _check_chol(name, A, got, want, rtol=1e-4):
     if res > limit:
         raise AssertionError(f"{name}: backward error {res:.3e} above the bound {limit:.3e}")
     return _max_err(got, want)
+
+
+def _check_full(name, A, got, plain):
+    """B5's factor of A against float64 and cholesky_ex: an exactly zero strict
+    upper triangle, every lane finite with a positive diagonal, each lane's
+    normwise backward error ||L L^T - A||_F / ||A||_F at most 1.5x
+    cholesky_ex's, its forward error max |L - L64| / max |L64| at most 4x
+    cholesky_ex's (tests/test_torch_chol_full.py's limits), and max |kernel -
+    plain| / max |L64| at most 4x cholesky_ex's forward error (both factors lie
+    within their forward error of L64: on an H100 max |kernel - plain| read
+    1.6e-6 on the Matern52 Ky and 2.0e-5 on the RBF one, where cholesky_ex's
+    forward errors read 1.2e-6 and 1.3e-5); returns max |got - plain|, the
+    plain version's factor."""
+    if not bool((torch.triu(got, 1) == 0).all()):
+        raise AssertionError(f"{name}: strict upper triangle not exactly zero")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: a lane failed")
+    if not bool((torch.diagonal(got, dim1=-2, dim2=-1) > 0).all()):
+        raise AssertionError(f"{name}: a diagonal entry is not positive")
+    ex = torch.linalg.cholesky_ex(A)[0]
+    exact = torch.linalg.cholesky(A.double())
+    scale = exact.abs().amax(dim=(-2, -1))
+    Ad = A.double()
+
+    def backward(L):
+        Ld = L.double()
+        return (Ld @ Ld.mT - Ad).norm(dim=(-2, -1)) / Ad.norm(dim=(-2, -1))
+
+    def forward(L):
+        return (L.double() - exact).abs().amax(dim=(-2, -1)) / scale
+
+    bwd, bwd_ex = backward(got), backward(ex)
+    fwd, fwd_ex = forward(got), forward(ex)
+    apart = (got.double() - plain.double()).abs().amax(dim=(-2, -1)) / scale
+    print(f"# {name}: backward error ||LL^T-A||/||A|| kernel {float(bwd.max()):.3e}, "
+          f"cholesky_ex {float(bwd_ex.max()):.3e}, plain {float(backward(plain).max()):.3e}; "
+          f"forward error from float64 kernel {float(fwd.max()):.3e}, cholesky_ex "
+          f"{float(fwd_ex.max()):.3e}; max |kernel - plain| {_max_err(got, plain):.3e}, "
+          f"over max |L64| {float(apart.max()):.3e} (limit 4x cholesky_ex's forward error)")
+    if not bool((bwd <= 1.5 * bwd_ex).all()):
+        raise AssertionError(f"{name}: backward error {bwd.tolist()} above 1.5x "
+                             f"cholesky_ex's {bwd_ex.tolist()}")
+    if not bool((fwd <= 4 * fwd_ex).all()):
+        raise AssertionError(f"{name}: forward error {fwd.tolist()} above 4x "
+                             f"cholesky_ex's {fwd_ex.tolist()}")
+    if not bool((apart <= 4 * fwd_ex).all()):
+        raise AssertionError(f"{name}: kernel and plain version {apart.tolist()} apart, "
+                             f"above 4x cholesky_ex's forward error {fwd_ex.tolist()}")
+    return _max_err(got, plain)
 
 
 def phase_device():
@@ -680,7 +732,7 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
     rows["B4"]["max_abs_err"] = max(errs)
     del A, got, bad
 
-    # one full factorization, three ways, on the fit shape's Matern52 Gram
+    # one full factorization, four ways, on the fit shape's Matern52 Gram
     K = ck.stationary_k_build(X, X, p5, "matern52", True)
     Ky = K + 0.05 * torch.eye(n, device=dev)
     del K
@@ -701,8 +753,32 @@ def phase_kernels(dev, n: int = 4096, m: int = 1000):
             times[route] = _time_ms(lambda: linalg.blocked_cholesky(Ky), calls=5)
     finally:
         config.cuda_chol_blocks = old
-    times["cholesky_ex (the default ladder route)"] = _time_ms(
+    times["cholesky_ex (the ladder's route outside B5's gate)"] = _time_ms(
         lambda: torch.linalg.cholesky_ex(Ky), calls=5)
+
+    # B5, the default ladder route: the same Ky, and the MCMC surrogate's 10
+    # RBF lanes, against float64 and cholesky_ex
+    X1 = (4 * torch.rand(1, n, 1, generator=gen, device=dev) - 2).contiguous()
+    Ky10 = ck.stationary_k_build(X1, X1, _rbf_rows(dev, 10, gen), "rbf", False)
+    Ky10.diagonal(dim1=-2, dim2=-1).add_(1e-2)
+    errs = []
+    for A, tag in ((Ky, f"5x{n}x{n} Matern52"), (Ky10, f"10x{n}x{n} RBF")):
+        got = cl.chol_full(A)
+        if not torch.equal(got, cl.chol_full(A)):
+            raise AssertionError("B5: two calls differ")
+        errs.append(_check_full(f"B5 chol_full {tag}", A, got, cl.chol_full_plain(A)))
+        del got
+        lanes = A.shape[0]
+        row = {"ms": _time_ms(lambda: cl.chol_full(A), calls=5),
+               "plain_ms": _time_ms(lambda: cl.chol_full_plain(A), calls=3),
+               "library_ms": _time_ms(lambda: torch.linalg.cholesky_ex(A), calls=5),
+               **_bound(2 * 4 * lanes * n * (n + 1) // 2, lanes * n ** 3 / 3)}
+        print(f"# B5 chol_full {tag}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"cholesky_ex {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}): {100 * row['bound_ms'] / row['ms']:.1f}% of it")
+        rows.setdefault("B5", row)
+    rows["B5"]["max_abs_err"] = max(errs)
+    times["B5 chol_full (the default ladder route)"] = rows["B5"]["ms"]
     for route, ms in times.items():
         print(f"# full factorization 5x{n}x{n} f32, {route}: {ms:.4f} ms")
     return rows
@@ -926,7 +1002,7 @@ def phase_main(dev):
         raise AssertionError("main path: posterior factorization failed")
     if acq.x.shape != (6,) or not bool(((acq.x >= -2.0) & (acq.x <= 2.0)).all()):
         raise AssertionError(f"main path: argmax {acq.x} outside the box")
-    for k in ("B1", "B2", "B3"):  # B4 is off the main path (cuda_chol_blocks off)
+    for k in ("B1", "B2", "B3", "B5"):  # B4 is off the main path (cuda_chol_blocks off)
         if launches[k] <= 0:
             raise AssertionError(f"main path: kernel {k} was never launched")
 
@@ -1235,7 +1311,7 @@ def phase_calls(dev, fitted):
     t_phase = _now()
     d = fitted.X.shape[1]
     space = DesignSpace(bounds_to_space([workload.BOX] * d))
-    total = {k: 0 for k in ("B1", "B2", "B3", "B4")}
+    total = dict.fromkeys(LAUNCHES, 0)
 
     def counted(name, fn, keys):
         _zero_counts()
@@ -1749,7 +1825,7 @@ def phase_composite(dev):
 
 # each kernel's launch counter in the program's registry (utils/profiling.py)
 LAUNCHES = {"B1": "b1.launches", "B2": "b2.launches", "B3": "b3.launches",
-            "B4": "b4.launches"}
+            "B4": "b4.launches", "B5": "b5.launches"}
 # of B2's: the row passes that wrote dX, and the column (dZ) passes
 LAUNCHES_B2 = {"B2 dX": "b2.launches_dx", "B2 dZ": "b2.launches_dz"}
 
@@ -2274,10 +2350,13 @@ def _ep_rounds(X, labels):
             abs(lmls[-1] - e64) / abs(e64))
 
 
-def _ep_f32_factor_evidence(model, post):
+def _ep_f32_factor_evidence(model, post, kernels=False):
     """The EP gate's control: the evidence at ``post``'s sites with B = I +
-    S^1/2 K S^1/2 factored in float32 by the jitter ladder (``cholesky_ex``),
-    where ``models/ep`` factors it in float64."""
+    S^1/2 K S^1/2 factored in float32 by the jitter ladder, where
+    ``models/ep`` factors it in float64: through ``cholesky_ex`` (the kernels
+    off for that call alone), or with ``kernels`` on its default route (B5 at
+    N = 4096)."""
+    from gaussian_process_optimization_tpu_torch.config import config
     from gaussian_process_optimization_tpu_torch.models import ep
     from gaussian_process_optimization_tpu_torch.models.likelihoods import Bernoulli
     from gaussian_process_optimization_tpu_torch.ops import linalg
@@ -2286,7 +2365,12 @@ def _ep_f32_factor_evidence(model, post):
         K = model.kern.K(model.X)
         tau, nu = post.tau_site.to(K.dtype), post.nu_site.to(K.dtype)
         sW = torch.sqrt(torch.clamp(tau, min=ep._TAU_EPS))
-        L, _, _ = linalg.jitchol(ep._eye(K.shape[-1], K) + sW[:, None] * K * sW[None, :])
+        old = config.use_cuda_kernels
+        config.use_cuda_kernels = "auto" if kernels else False
+        try:
+            L, _, _ = linalg.jitchol(ep._eye(K.shape[-1], K) + sW[:, None] * K * sW[None, :])
+        finally:
+            config.use_cuda_kernels = old
         mu, sigma2, L, _ = ep._posterior_from_factor(K, tau, nu, L)
         return float(ep._dense_ep_lml(Bernoulli(), model.Y, tau, nu, mu, sigma2, L, 1.0))
 
@@ -2319,6 +2403,7 @@ def _leg_ep(X, labels):
         config.use_cuda_kernels = "auto"
     rel_plain = abs(e32_plain - e64) / abs(e64)
     rel_control = abs(_ep_f32_factor_evidence(model, post) - e64) / abs(e64)
+    rel_b5 = abs(_ep_f32_factor_evidence(model, post, kernels=True) - e64) / abs(e64)
     small = GPClassification.create(X[:SEQUENTIAL_EP_N], labels[:SEQUENTIAL_EP_N],
                                     inference_mode="sequential")
     t0 = _sync()
@@ -2345,7 +2430,8 @@ def _leg_ep(X, labels):
           f"{plain[4][-1]:.4f} vs f64 {plain[7]:.4f} (rel {plain[8]:.3e}, a reading)")
     print(f"# approximate, EP's control: the same sites' float32 evidence with B factored in "
           f"float32 (cholesky_ex) {rel_control:.3e} from float64 (must exceed "
-          f"{EP_EVIDENCE_LIMIT:g})")
+          f"{EP_EVIDENCE_LIMIT:g}); through the ladder's default route (B5) {rel_b5:.3e}, "
+          f"a reading")
     if not acc > CLASSIFY_ACCURACY:
         raise AssertionError("EP: training accuracy too low")
     if not (math.isfinite(float(seq.lml)) and math.isfinite(smin32)):
@@ -4468,6 +4554,7 @@ def main():
                "gaussian_process_optimization_tpu/ops/pallas_linalg.py:230"),
         "B4": ("cholesky_blocks", "gaussian_process_optimization_tpu_torch/csrc/chol_blocks.cu",
                "gaussian_process_optimization_tpu/ops/pallas_linalg.py:223"),
+        "B5": ("chol_full", "gaussian_process_optimization_tpu_torch/csrc/chol_full.cu", None),
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():

@@ -37,6 +37,9 @@ _SIGNATURES = {
     "gpo_bwd_col_strip": [],
     "gpo_padded_width": [_I],
     "gpo_cholesky_blocks": [_P, _P, _I, _I, _P],
+    "gpo_chol_full_diag": [_P, _L, _I, _I, _P, _P, _P, _I, _P],
+    "gpo_chol_full_nan": [_P, _L, _P, _I, _P],
+    "gpo_chol_full_syrk": [_P, _L, _I, _I, _I, _P, _I, _I, _I, _P],
     "gpo_stationary_k": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     "gpo_stationary_k_bwd_rows": [_P, _P, _P, _P, _P, _P, *_K_COMMON],
     "gpo_stationary_k_bwd_cols": [_P, _P, _P, _P, _P, *_K_COMMON],

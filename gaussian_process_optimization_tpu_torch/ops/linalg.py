@@ -1,15 +1,19 @@
 """Dense linear algebra for exact GP inference (twin of ``gaussian_process_optimization_tpu/ops/linalg.py``).
 
 Every function takes leading lane axes. Triangular solves are
-``torch.linalg``'s. The jitter ladder factors each attempt with ``cholesky_ex``,
-or with :func:`blocked_cholesky` (its diagonal blocks in the batched Cholesky
-kernel) when ``config.cuda_chol_blocks`` is on; the diagonal blocks of
+``torch.linalg``'s. The jitter ladder factors each attempt with the full-size
+Cholesky kernel where its gate admits the matrix (CUDA float32, n a multiple of
+128 and at least 512), else with ``cholesky_ex``, or with
+:func:`blocked_cholesky` (its diagonal blocks in the batched Cholesky kernel)
+when ``config.cuda_chol_blocks`` is on; the diagonal blocks of
 :func:`tri_inv_lower` route into the triangular-inverse kernel
 (``ops/cuda_linalg.py``). :func:`matmul` takes the reference's ``precision``
 argument, which the exact GP's backward passes to :func:`tri_tdot` and
 :func:`tri_inv_lower` (``config.grad_matmul_precision``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -163,8 +167,13 @@ def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
     Each attempt is one factorization of every lane, counted in
     ``chol.factorizations`` (``utils.profiling``): ``blocked_cholesky`` when
     ``config.cuda_chol_blocks`` is on (itself ``cholesky_ex`` below two
-    256-blocks), else ``cholesky_ex``. The per-lane verdict is finiteness, as in the
-    reference, because both routes return a failed lane as NaN:
+    256-blocks), else the full-size kernel (``cuda_linalg.chol_full``, in place
+    on the attempt's copy) where ``cuda_linalg.chol_full_eligible`` admits A,
+    else ``cholesky_ex``. The kernel also fails a pivot that is positive but
+    within float32's rounding of zero, which ``cholesky_ex`` passes or fails by
+    its rounding (``cuda_linalg.pivot_floors``), so that its rung does not fall
+    below ``cholesky_ex``'s. The per-lane verdict is finiteness, as in the
+    reference, because every route returns a failed lane as NaN:
     ``cholesky_ex`` itself reports a non-PD lane through ``info > 0`` and may
     return an L that is entirely finite (``diag(1, 1, -1e-3, 1)`` factors to a
     finite L with info = 3), so ``cholesky_plain`` sets such lanes to NaN.
@@ -178,7 +187,13 @@ def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
     batch = A.shape[:-2]
     dev = A.device
     diag_mean = torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)
-    factor = blocked_cholesky if config.cuda_chol_blocks else cuda_linalg.cholesky_plain
+    b5 = not config.cuda_chol_blocks and cuda_linalg.chol_full_eligible(A)
+    if config.cuda_chol_blocks:
+        factor = blocked_cholesky
+    elif b5:
+        factor = functools.partial(cuda_linalg.chol_full, overwrite_a=True)
+    else:
+        factor = cuda_linalg.cholesky_plain
 
     def attempt(k):
         counters["chol.factorizations"] += 1
@@ -189,8 +204,10 @@ def jitchol_full(A: torch.Tensor, maxtries: int | None = None, k_start=None,
         Aj.diagonal(dim1=-2, dim2=-1).add_(jitter[..., None])
         L = factor(Aj)
         del Aj
-        ok = torch.isfinite(L).all(dim=-1).all(dim=-1)
-        L.masked_fill_(~ok[..., None, None], float("nan"))
+        # a lane is finite where its largest |entry| is (NaN propagates), read in one pass
+        ok = torch.isfinite(torch.linalg.vector_norm(L, float("inf"), dim=(-2, -1)))
+        if not b5:  # B5 fills the lanes it fails with NaN, and only those are not finite
+            L.masked_fill_(~ok[..., None, None], float("nan"))
         return L, jitter, ok
 
     if k_start is None:

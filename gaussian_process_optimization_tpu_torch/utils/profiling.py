@@ -96,8 +96,8 @@ class PhaseTimer:
 
 counters: dict[str, int] = dict.fromkeys((
     "b1.launches", "b2.launches", "b2.launches_dx", "b2.launches_dz", "b3.launches",
-    "b4.launches", "lbfgs.iters", "lbfgs.evals", "chol.factorizations", "host.syncs",
-    "trace.dropped"), 0)
+    "b4.launches", "b5.launches", "lbfgs.iters", "lbfgs.evals", "chol.factorizations",
+    "host.syncs", "trace.dropped"), 0)
 
 # the most spans one record holds; a profiler left running drops the rest
 SPAN_CAP = 1_000_000
